@@ -6,6 +6,7 @@ def pytest_configure(config):
         "markers", "slow: subprocess/multi-device tests (always run; marker "
         "allows -m 'not slow' for quick iterations)"
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(autouse=True)
