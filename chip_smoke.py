@@ -15,25 +15,52 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    float32 and bfloat16 values, k in {1, 7, 8, 64}, plus k_tile=32 on the
    random plan (windows staged in groups of warps). Tolerance
    ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise: float32 sums
-   of at most ~40 products per row, taken in another order.
+   of at most ~40 products per row, taken in another order. Then
+   `coalesced_gather`, which must equal its plain version and
+   ``table[idx]`` bitwise (as bytes), on (a) the paged-KV shape of phase 5:
+   a (1040, 16384) float32 page pool gathered through the static page
+   table, block_rows 1, window 256, packed and unpacked metadata; (b) the
+   same pool with the first 48 of each request's 65 pages shared (a
+   768-token system prompt); (c) llama3-8b's token table (128256, 4096)
+   bfloat16 with 8,192 zipf(1.1) ids, block_rows 8; (d) a (1001, 3)
+   bfloat16 table, block_rows 8 (rows not a multiple of it, 2-byte units);
+   (e) a table holding -0.0, inf and nan.
 3. The main path: `repro_torch.launch.serve` with ``--spmv banded
    --spmv-rows 1000000 --batch 64 --requests 8`` in process, then one
    full-size `engine.matvec`, with both kernels' launch counts set to 0
    just before and read just after; the served batch and the matvec are
    checked against the reference backend on the card, and a small matrix
    against a float64 dense product.
-4. Times at the main path's shapes (CUDA events, warmed up): each kernel,
-   its plain version, a PyTorch sparse-CSR product on the same matrix (a
-   yardstick only), and the bound: the bytes the function must move over
-   3.35 TB/s, or its float32 operations over 67 TFLOP/s, whichever is
-   larger. The bytes are the matrix's (each nonzero's value and a 4-byte
-   index, the tags), the right-hand side read once and the output written
-   once; the operations are 2 per nonzero and column. The padding the plan
-   adds is not counted there; the plan's own bytes are printed beside it.
+4. Times at the main paths' shapes (CUDA events, warmed up, the run queued
+   behind a spin kernel so that the host's launch overhead stays out of
+   them): each kernel,
+   its plain version, a PyTorch call computing the same function (a
+   yardstick only: sparse-CSR products, `torch.index_select`), and the
+   bound: the bytes the function must move over 3.35 TB/s, or its float32
+   operations over 67 TFLOP/s, whichever is larger. For the SELL kernels
+   the bytes are the matrix's (each nonzero's value and a 4-byte index, the
+   tags), the right-hand side read once and the output written once; the
+   operations are 2 per nonzero and column. The padding the plan adds is
+   not counted there; the plan's own bytes are printed beside it. For the
+   gather (shape (a); (b) and (c) are printed too) the bytes are each
+   distinct row read once, the output rows written once, and the plan's
+   metadata and tags.
+5. The paged path: `repro_torch.launch.serve` with ``--arch llama3-8b
+   --paged --batch 16 --prompt-len 1024 --decode-steps 16 --page-block 16``
+   in process (32 layers, 32 heads, 8 KV heads, head_dim 128; 65 pages a
+   request, 1,040 pages a layer), with every launch count set to 0 just
+   before and `coalesced_gather`'s read just after; serve itself gates the
+   paged attention against dense SDPA at 1e-5 and the decode steps after
+   the first at zero schedule builds. Then one decode step split on the
+   host clock (draws, appends, gathers, attention, the dense parity
+   reference), the gather kernel's own share in CUDA events, and the
+   device's busy share and time by kernel from torch.profiler.
 
+Phase 3 reads the SELL kernels' launch counts and phase 5 the gather's.
 The line before the card line is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device.
 """
+import dataclasses
 import json
 import re
 import subprocess
@@ -62,7 +89,21 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/sell_spmm.cu",
         replaces="src/repro/kernels/sell_spmm.py:176",
     ),
+    "coalesced_gather": dict(
+        source="src/repro_torch/kernels/csrc/coalesced_gather.cu",
+        replaces="src/repro/kernels/coalesced_gather.py:163",
+    ),
 }
+# The paged path: llama3-8b's widths, vLLM's default page of 16 tokens.
+PAGED_ARGV = ["--arch", "llama3-8b", "--paged", "--batch", "16",
+              "--prompt-len", "1024", "--decode-steps", "16",
+              "--page-block", "16"]
+PAGED_BATCH, PAGED_PAGES, PAGE_ROW = 16, 65, 16 * 8 * 128
+TOKEN_ROWS, TOKEN_DIM = 128256, 4096  # llama3-8b's vocabulary and width
+GATHER_WINDOW = 256
+# ptxas names the gather's vector unit by its mangled type.
+_GATHER_UNITS = {"5uint4": "16B", "5uint2": "8B", "j": "4B", "t": "2B",
+                 "h": "1B"}
 
 
 def _phase(name):
@@ -81,12 +122,22 @@ def _max_err(got, want):
     return float(err.max()) if err.numel() else 0.0
 
 
+# Cycles of a spin kernel queued ahead of a timed run (~10 ms on an H100):
+# the host enqueues the whole run meanwhile, so the events time the device,
+# not the wrappers' host overhead between launches.
+HEAD_START_CYCLES = 20_000_000
+
+
 def _time_ms(fn, iters=20, warmup=3):
+    """Device milliseconds a call, from CUDA events around `iters` calls
+    queued behind a spin kernel (when the host is slower than the spin, the
+    gaps count too)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -121,12 +172,17 @@ def environment_and_build():
     source = entry = None
     for line in _build.build_log().splitlines():
         m = re.search(r"sell_kernelI(f|13__nv_bfloat16)Lb([01])", line)
+        mg = re.search(r"gather_kernelI(5uint4|5uint2|j|t|h)Lb([01])", line)
         if line.startswith("== "):
             source = line[3:]
         elif "Compiling entry" in line and m:
             entry = (f"{source} sell_kernel<"
                      f"{'f32' if m.group(1) == 'f' else 'bf16'},"
                      f"{'packed' if m.group(2) == '1' else 'unpacked'}>")
+        elif "Compiling entry" in line and mg:
+            entry = (f"{source} gather_kernel<"
+                     f"{_GATHER_UNITS[mg.group(1)]},"
+                     f"{'packed' if mg.group(2) == '1' else 'unpacked'}>")
         elif "Used" in line and entry:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
     return smi
@@ -210,7 +266,111 @@ def kernels_against_plain(device):
         del va, plans, plan0, x, X
         clear_schedule_cache()
         torch.cuda.empty_cache()
+    worst["coalesced_gather"] = gather_against_plain(device)
     print(f'kernels: {json.dumps(list(KERNELS))}')
+    return worst
+
+
+def _bytes_equal(got, want):
+    """Bitwise equality (as bytes: -0.0 differs from 0.0, nan equals the
+    same nan); raises otherwise."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(
+            got.contiguous().view(-1).view(torch.uint8),
+            want.contiguous().view(-1).view(torch.uint8)):
+        raise AssertionError(
+            f"gather differs bitwise: {tuple(got.shape)} {got.dtype} against "
+            f"{tuple(want.shape)} {want.dtype}")
+
+
+def paged_stream(batch, pages, shared):
+    """The flattened page table of `batch` requests of `pages` pages each,
+    the first `shared` of them common to all requests and the rest private
+    (the static allocator when shared is 0)."""
+    rows, nxt = [], shared
+    for _ in range(batch):
+        rows.append(np.concatenate([np.arange(shared),
+                                    np.arange(nxt, nxt + pages - shared)]))
+        nxt += pages - shared
+    return np.concatenate(rows).astype(np.int32)
+
+
+def gather_cases(device):
+    """name -> (table on the card, index stream, block_rows): the cases
+    (a)-(e) of phase 2, from fixed seeds."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    n_pages = PAGED_BATCH * PAGED_PAGES
+    pool = torch.randn((n_pages, PAGE_ROW), generator=gen, device=device)
+    rng = np.random.default_rng(12)
+    tokens = torch.randn((TOKEN_ROWS, TOKEN_DIM), generator=gen,
+                         device=device).to(torch.bfloat16)
+    narrow = torch.randn((1001, 3), generator=gen, device=device).to(
+        torch.bfloat16)
+    special = torch.randn((200, 33), generator=gen, device=device)
+    special[3, 1] = float("inf")
+    special[7, 5] = -0.0
+    special[9] = float("nan")
+    special[11, ::2] = float("-inf")
+    special[13] = -0.0
+    ids_special = np.concatenate([rng.integers(0, 200, 400),
+                                  np.repeat([3, 7, 9, 11, 13], 8)])
+    rng.shuffle(ids_special)
+    return {
+        "a paged pool f32": (pool, paged_stream(PAGED_BATCH, PAGED_PAGES, 0),
+                             1),
+        "b shared prefix f32": (
+            pool, paged_stream(PAGED_BATCH, PAGED_PAGES, 48), 1),
+        "c token table bf16": (
+            tokens, ((rng.zipf(1.1, 8192) - 1) % TOKEN_ROWS).astype(np.int32),
+            8),
+        "d narrow D=3 bf16": (narrow, rng.integers(0, 1001, 3000).astype(
+            np.int32), 8),
+        "e -0.0/inf/nan f32": (special, ids_special.astype(np.int32), 8),
+    }
+
+
+def gather_plans(idx, block_rows, device):
+    """{packed: plan} of one index stream at the gather window."""
+    from repro_torch.core.engine import cached_block_schedule
+    from repro_torch.kernels.coalesced_gather import build_gather_plan
+
+    sched, _ = cached_block_schedule(idx, window=GATHER_WINDOW,
+                                     block_rows=block_rows, device=device)
+    return {p: build_gather_plan(sched, packed=p) for p in (True, False)}
+
+
+def gather_against_plain(device):
+    import torch
+
+    from repro_torch.core.coalescer import coalesce_stats
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
+        coalesced_gather_plain, gather_unit
+
+    worst = 0.0
+    for name, (table, idx, br) in gather_cases(device).items():
+        wide, rate = coalesce_stats(idx, window=GATHER_WINDOW, block_rows=br)
+        want_ref = table[torch.as_tensor(idx, device=device).long()]
+        unit = gather_unit(table.shape[1] * table.element_size(),
+                           table.data_ptr(), want_ref.data_ptr())
+        for packed, plan in gather_plans(idx, br, device).items():
+            kw = dict(window=GATHER_WINDOW, block_rows=br, plan=plan,
+                      n_out=len(idx))
+            got = coalesced_gather_cuda(table, None, **kw)
+            torch.cuda.synchronize()
+            _bytes_equal(got, coalesced_gather_plain(table, None, **kw))
+            _bytes_equal(got, want_ref)
+            if bool(torch.isfinite(want_ref).all()):
+                worst = max(worst, float(
+                    (got.float() - want_ref.float()).abs().max()))
+        print(f"  coalesced_gather {name}: table {tuple(table.shape)}, "
+              f"{len(idx)} ids, block_rows {br}, max_warps "
+              f"{plan.max_warps}, {wide} wide accesses (coalesce rate "
+              f"{rate:.2f}), {unit}-byte units: bitwise equal to the plain "
+              f"version and table[idx], packed and unpacked")
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -221,6 +381,7 @@ def main_path(device):
     from repro_torch.core.engine import SpMVEngine, clear_engine_cache, \
         clear_schedule_cache, get_engine
     from repro_torch.core.formats import dense_to_csr
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda
     from repro_torch.kernels.sell_spmm import sell_spmm_cuda
     from repro_torch.kernels.sell_spmv import sell_spmv_cuda
     from repro_torch.launch import serve
@@ -233,7 +394,8 @@ def main_path(device):
     print("serve " + " ".join(argv))
     sell_spmv_cuda.launches = 0
     sell_spmm_cuda.launches = 0
-    out = serve.serve_spmv(serve.build_parser().parse_args(argv))
+    coalesced_gather_cuda.launches = 0
+    out = serve.run(serve.build_parser().parse_args(argv))
     engine = out["engine"]
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         engine.n_cols).astype(np.float32), device=device)
@@ -354,7 +516,212 @@ def times(out, smi):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes} B, "
               f"{flops:.3g} flop) -> {r['bound_ms'] / r['ms'] * 100:.1f}% "
               f"of the bound; the plan's own bytes once {plan_ms:.4f} ms")
+    rows["coalesced_gather"] = gather_times(dev)
     return rows
+
+
+def gather_times(device):
+    """Times of the gather at cases (a), (b) and (c) of phase 2 (packed
+    plans); returns case (a)'s row."""
+    import torch
+
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
+        coalesced_gather_plain
+
+    rows = {}
+    for name, (table, idx, br) in gather_cases(device).items():
+        if name[0] not in "abc":
+            continue
+        plan = gather_plans(idx, br, device)[True]
+        kw = dict(window=GATHER_WINDOW, block_rows=br, plan=plan,
+                  n_out=len(idx))
+        idx_t = torch.as_tensor(idx, device=device).long()
+        row_bytes = table.shape[1] * table.element_size()
+        nbytes = (len(np.unique(idx)) + len(idx)) * row_bytes + (
+            plan.elem_meta.numel() + plan.tags.numel()) * 4
+        r = dict(
+            ms=_time_ms(lambda: coalesced_gather_cuda(table, None, **kw)),
+            plain_ms=_time_ms(lambda: coalesced_gather_plain(
+                table, None, **kw), iters=5),
+            library_ms=_time_ms(lambda: torch.index_select(table, 0, idx_t)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        )
+        print(f"coalesced_gather {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, torch.index_select "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(bytes: {nbytes} B, {len(np.unique(idx))} distinct rows of "
+              f"{row_bytes} B read, {len(idx)} written, metadata and tags) "
+              f"-> {r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+        rows[name[0]] = r
+    torch.cuda.empty_cache()
+    return rows["a"]
+
+
+def paged_path(device):
+    import torch
+
+    from repro_torch.core.engine import clear_engine_cache, \
+        clear_schedule_cache
+    from repro_torch.core.gather_engine import clear_gather_engine_cache
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda
+    from repro_torch.kernels.sell_spmm import sell_spmm_cuda
+    from repro_torch.kernels.sell_spmv import sell_spmv_cuda
+    from repro_torch.launch import serve
+
+    _phase("5. paged path: serve --arch llama3-8b --paged (in process)")
+    clear_engine_cache()
+    clear_schedule_cache()
+    clear_gather_engine_cache()
+    torch.cuda.empty_cache()
+    print("serve " + " ".join(PAGED_ARGV))
+    torch.cuda.reset_peak_memory_stats(device)
+    sell_spmv_cuda.launches = 0
+    sell_spmm_cuda.launches = 0
+    coalesced_gather_cuda.launches = 0
+    out = serve.run(serve.build_parser().parse_args(PAGED_ARGV))
+    launches = coalesced_gather_cuda.launches
+    print(f"kernel launches on the paged path: coalesced_gather {launches}")
+    if launches < 1:
+        raise AssertionError("the paged path never launched coalesced_gather")
+    if not out["max_err"] <= 1e-5 or out["builds_warm"] != 0:
+        raise AssertionError(f"paged serve: max_err {out['max_err']}, "
+                             f"steady-state builds {out['builds_warm']}")
+    cfg, cache = out["config"], out["caches"][0]
+    shape = (PAGED_BATCH * PAGED_PAGES, 16, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    if (cfg.n_layers, cfg.n_heads) != (32, 32) or tuple(
+            cache.k_pages.shape) != shape or not bool(
+            torch.isfinite(cache.k_pages).all()):
+        raise AssertionError(f"paged caches: {cfg.n_layers} layers, "
+                             f"{tuple(cache.k_pages.shape)}")
+    rep = out["reports"][0]
+    print(f"paged: {out['tok_per_s']:.1f} tok/s over "
+          f"{out['decode_s']:.3f}s of decode (prefill {out['prefill_s']:.3f}"
+          f"s), parity {out['max_err']:.3e}, steady-state builds "
+          f"{out['builds_warm']}, {rep['n_indices']} pages a layer in "
+          f"{rep['n_windows']} windows, peak device memory "
+          f"{torch.cuda.max_memory_allocated(device)} B")
+    paged_step_breakdown(out, device)
+    del out, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def paged_step_breakdown(out, device, repeats=3):
+    """Where one decode step of the paged path goes, after the served run
+    (the caches are full, so the step rewrites the last token): on the host
+    clock, synchronised after each part, median of `repeats`; the gather
+    kernel's own time in CUDA events; and, from torch.profiler over one
+    step, the device's busy share and its time by kernel."""
+    import torch
+
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda
+    from repro_torch.models.layers import _sdpa
+    from repro_torch.models.paged_kv import _kv_engine, append_token, \
+        gather_kv, paged_attention
+
+    cfg = out["config"]
+    L, B, H = cfg.n_layers, PAGED_BATCH, cfg.n_heads
+    n_kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    caches = [dataclasses.replace(c, lengths=c.lengths - 1)
+              for c in out["caches"]]
+    S = caches[0].page_table.shape[1] * caches[0].block
+    mask = torch.ones((B, 1, 1, S), dtype=torch.bool, device=device)
+    rng = np.random.default_rng(99)
+    dense = gather_kv(caches[0], backend="auto")
+    q_all = None
+
+    def draws():
+        nonlocal q_all
+        kv = torch.as_tensor(rng.standard_normal((L, 2, B, n_kv, hd)).astype(
+            np.float32), device=device)
+        q_all = torch.as_tensor(rng.standard_normal((L, B, 1, H, hd)).astype(
+            np.float32), device=device)
+        return kv
+
+    def append(kv):
+        for li in range(L):
+            append_token(caches[li], kv[li, 0], kv[li, 1])
+
+    def gathers():
+        for li in range(L):
+            gather_kv(caches[li], backend="auto")
+
+    def attention():
+        for li in range(L):
+            paged_attention(q_all[li], caches[li], n_heads=H, backend="auto")
+
+    def parity():
+        for li in range(L):
+            _sdpa(q_all[li], dense[0], dense[1], mask)
+
+    def step():
+        append(draws())
+        attention()
+        parity()
+
+    def host_ms(fn, *args):
+        times_ = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times_.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times_))
+
+    kv = draws()
+    parts = {
+        "host draws + copy to the card": host_ms(draws),
+        "append_token x L": host_ms(append, kv),
+        "gather_kv x L (2 gathers each)": host_ms(gathers),
+        "paged_attention x L (gathers included)": host_ms(attention),
+        "dense _sdpa x L (the parity reference)": host_ms(parity),
+        "whole step": host_ms(step),
+    }
+    eng = _kv_engine(caches[0], backend="auto")
+    plan, n = eng.device_plan, eng.n_indices
+    tables = [c.k_pages.reshape(c.n_pages, -1) for c in caches]
+    kernel_ms = _time_ms(lambda: [coalesced_gather_cuda(
+        t, None, window=eng.window, block_rows=1, plan=plan, n_out=n)
+        for t in tables], iters=5) * 2
+    print(f"one decode step, host clock (median of {repeats}): " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in parts.items()))
+    print(f"  the gather kernel's own time: {kernel_ms:.3f} ms a step "
+          f"({2 * L} launches), {kernel_ms / parts['whole step'] * 100:.1f}% "
+          f"of the step")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((evt.time_range.start, evt.time_range.end))
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + (
+                evt.time_range.end - evt.time_range.start)
+    if not spans:
+        print("  device busy share: not measured (the profiler recorded no "
+              "device events)")
+        return
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    print(f"  torch.profiler over one step: device busy {busy / 1e3:.3f} ms "
+          f"of {wall_us / 1e3:.3f} ms wall ({busy / wall_us * 100:.1f}%), "
+          f"{len(spans)} device events; by name (ms): " + "; ".join(
+              f"{name[:60]} {t / 1e3:.3f}" for name, t in top))
 
 
 def main():
@@ -375,6 +742,8 @@ def main():
     worst = kernels_against_plain(device)
     out, launches = main_path(device)
     rows = times(out, smi)
+    del out
+    launches["coalesced_gather"] = paged_path(device)
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=launches[name], max_abs_err=worst[name], **rows[name])

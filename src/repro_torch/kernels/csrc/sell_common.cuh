@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "plan_meta.cuh"
+
 namespace sell {
 namespace {
 
@@ -38,23 +40,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// (warp, offset) of element e of window w. The packed word is decoded as an
-// unsigned value: warp ids >= 2^15 set the int32 sign bit, and the shift
-// must be logical.
-template <bool PACKED>
-__device__ __forceinline__ void decode(const int32_t* __restrict__ meta,
-                                       long long w, int window, int e,
-                                       int& warp, int& offset) {
-  if (PACKED) {
-    const uint32_t m = static_cast<uint32_t>(meta[w * window + e]);
-    warp = static_cast<int>(m >> 16);
-    offset = static_cast<int>(m & 0xFFFFu);
-  } else {
-    const int32_t* base = meta + w * 2 * window;
-    warp = base[e];
-    offset = base[window + e];
-  }
-}
+using ::plan::decode;
 
 // The coalesced wide fetch: copy warps [g0, g1) of one window into shared
 // memory, tile[(t - g0) * block_rows + r][j] = X[tag[t] * block_rows + r,

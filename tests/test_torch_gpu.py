@@ -6,9 +6,10 @@ the JAX package, so it also runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Tolerance: ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise — both
-sum the same float32 products in different orders (and the kernel may fuse
-multiply-adds).
+Tolerance: ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise for the
+SELL kernels — both sum the same float32 products in different orders (and
+the kernel may fuse multiply-adds). The gather copies bytes: it must equal
+its plain version and ``table[idx]`` bitwise.
 """
 import numpy as np
 import pytest
@@ -17,9 +18,12 @@ import torch
 from repro_torch.core import matrices
 from repro_torch.core.engine import SpMVEngine, cached_block_schedule, \
     clear_engine_cache, clear_schedule_cache
+from repro_torch.core.gather_engine import clear_gather_engine_cache
 from repro_torch.core.runtime import normalize_to_sell, pad_width
 from repro_torch.core.spmv import _sell_padded
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.coalesced_gather import build_gather_plan, \
+    coalesced_gather_cuda, coalesced_gather_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.kernels.sell_spmv import build_device_plan, launch_config, \
     sell_spmv_cuda, sell_spmv_plain
@@ -35,6 +39,7 @@ def cuda():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     clear_engine_cache()
     clear_schedule_cache()
+    clear_gather_engine_cache()
     yield torch.device("cuda", torch.cuda.current_device())
 
 
@@ -142,3 +147,96 @@ def test_engine_cuda_backend_matches_reference_on_card(cuda):
     _close(eng.matmat(X), ref.matmat(X))
     _close(eng.matvec(X[:, 0]), ref.matvec(X[:, 0]))
     _close(eng.matmat_vmapped(X), ref.matmat(X))
+
+
+def _bytes(t):
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _paged_stream(batch, pages, shared):
+    rows, nxt = [], shared
+    for _ in range(batch):
+        rows.append(np.concatenate([np.arange(shared),
+                                    np.arange(nxt, nxt + pages - shared)]))
+        nxt += pages - shared
+    return np.concatenate(rows).astype(np.int32)
+
+
+def _special_table(gen, device):
+    t = torch.randn((50, 9), generator=gen, device=device)
+    t[3, 1] = float("inf")
+    t[7, 5] = -0.0
+    t[9] = float("nan")
+    t[11, ::2] = float("-inf")
+    return t
+
+
+# Cases (a)-(e) of chip_smoke.py's gather phase, at a small size: name ->
+# (table maker (generator, device), index stream, block_rows).
+GATHER_CASES = {
+    "a_pages": (lambda g, d: torch.randn((4 * 9, 2 * 4 * 16), generator=g,
+                                         device=d),
+                _paged_stream(4, 9, 0), 1),
+    "b_shared_prefix": (lambda g, d: torch.randn((4 * 9, 2 * 4 * 16),
+                                                 generator=g, device=d),
+                        _paged_stream(4, 9, 5), 1),
+    "c_tokens_bf16": (lambda g, d: torch.randn((1000, 64), generator=g,
+                                               device=d).to(torch.bfloat16),
+                      ((np.random.default_rng(1).zipf(1.1, 700) - 1)
+                       % 1000).astype(np.int32), 8),
+    "d_narrow_bf16": (lambda g, d: torch.randn((101, 3), generator=g,
+                                               device=d).to(torch.bfloat16),
+                      np.random.default_rng(2).integers(0, 101, 300), 8),
+    "e_specials": (_special_table, np.random.default_rng(3).integers(
+        0, 50, 300), 8),
+}
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_coalesced_gather_kernel_matches_plain_bitwise(cuda, case, packed):
+    make, idx, br = GATHER_CASES[case]
+    table = make(torch.Generator(device=cuda).manual_seed(7), cuda)
+    sched, _ = cached_block_schedule(idx, window=64, block_rows=br,
+                                     device=cuda)
+    plan = build_gather_plan(sched, packed=packed)
+    kw = dict(window=64, block_rows=br, plan=plan, n_out=len(idx))
+    before = coalesced_gather_cuda.launches
+    got = ops.coalesced_gather(table, None, **kw)
+    torch.cuda.synchronize()
+    assert coalesced_gather_cuda.launches == before + 1
+    assert torch.equal(_bytes(got), _bytes(coalesced_gather_plain(
+        table, None, **kw)))
+    want = table[torch.as_tensor(idx, device=cuda).long()]
+    assert torch.equal(_bytes(got), _bytes(want))
+
+
+def test_serve_paged_full_width_heads_on_card(cuda):
+    """llama3-8b's heads and head_dim (one short decode) through the gather
+    kernel on the card: parity with dense SDPA and no steady-state builds."""
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(
+        ["--arch", "llama3-8b", "--paged", "--batch", "2", "--prompt-len",
+         "40", "--decode-steps", "3", "--page-block", "16"])
+    before = coalesced_gather_cuda.launches
+    out = serve.run(args)
+    assert coalesced_gather_cuda.launches - before == 2 * 32 * 3
+    assert out["max_err"] <= 1e-5 and out["builds_warm"] == 0
+    assert out["caches"][0].k_pages.is_cuda
+    assert out["reports"][0]["backend_resolved"] == "cuda"
+
+
+def test_coalesced_gather_stages_long_windows_in_chunks(cuda):
+    """A window longer than the elements a block stages at once (1,024) is
+    copied chunk by chunk; a partial last window ends mid-chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    table = torch.randn((5000, 12), generator=gen, device=cuda)
+    idx = np.random.default_rng(9).integers(0, 5000, 2 * 2500 + 700)
+    sched, _ = cached_block_schedule(idx, window=2500, block_rows=4,
+                                     device=cuda)
+    plan = build_gather_plan(sched)
+    got = coalesced_gather_cuda(table, None, window=2500, block_rows=4,
+                                plan=plan, n_out=len(idx))
+    torch.cuda.synchronize()
+    assert torch.equal(got, table[torch.as_tensor(idx, device=cuda).long()])
