@@ -11,9 +11,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. Kernels against their plain torch versions on the card: `sell_spmv` and
    `sell_spmm` on the full-size banded plan (1,000,000 rows) and on a
    random-family plan (131,072 rows, 16 nonzeros a row, ~256 warps a
-   window: the large-shared-memory path), packed and unpacked metadata,
-   float32 and bfloat16 values, k in {1, 7, 8, 64}, plus k_tile=32 on the
-   random plan (windows staged in groups of warps). Tolerance
+   window: its windows are staged in groups of warps), packed and unpacked
+   metadata, float32 and bfloat16 values, k in {1, 7, 33, 64, 65, 128,
+   200} (k not a multiple of 4 or 8; k = 200 takes two 128-column grid
+   columns), each at buffer_depth 1, 2 and 4. Tolerance
    ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise: float32 sums
    of at most ~40 products per row, taken in another order. Then
    `coalesced_gather`, which must equal its plain version and
@@ -41,7 +42,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the bytes are the matrix's (each nonzero's value and a 4-byte index, the
    tags), the right-hand side read once and the output written once; the
    operations are 2 per nonzero and column. The padding the plan adds is
-   not counted there; the plan's own bytes are printed beside it. For the
+   not counted there; the plan's own bytes are printed beside it, with
+   each kernel's share of both, the X bytes a launch stages into shared
+   memory (read from L2 or HBM), and the kernels' times at buffer_depth 1
+   and 2. For the
    gather (shape (a); (b) and (c) are printed too) the bytes are each
    distinct row read once, the output rows written once, and the plan's
    metadata and tags.
@@ -79,7 +83,8 @@ TOL = 1e-5
 MAIN_ROWS = 1_000_000
 MAIN_BATCH = 64
 RANDOM_ROWS = 131_072
-KS = (1, 7, 8, 64)
+KS = (1, 7, 33, 64, 65, 128, 200)
+DEPTHS = (1, 2, 4)
 KERNELS = {
     "sell_spmv": dict(
         source="src/repro_torch/kernels/csrc/sell_spmv.cu",
@@ -171,14 +176,16 @@ def environment_and_build():
           f"{_build.library_dir().relative_to(ROOT)}")
     source = entry = None
     for line in _build.build_log().splitlines():
-        m = re.search(r"sell_kernelI(f|13__nv_bfloat16)Lb([01])", line)
+        m = re.search(
+            r"sell_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)ELi(\d+)E", line)
         mg = re.search(r"gather_kernelI(5uint4|5uint2|j|t|h)Lb([01])", line)
         if line.startswith("== "):
             source = line[3:]
         elif "Compiling entry" in line and m:
             entry = (f"{source} sell_kernel<"
                      f"{'f32' if m.group(1) == 'f' else 'bf16'},"
-                     f"{'packed' if m.group(2) == '1' else 'unpacked'}>")
+                     f"{'packed' if m.group(2) == '1' else 'unpacked'},"
+                     f"NC={m.group(3)},X {m.group(4)}B>")
         elif "Compiling entry" in line and mg:
             entry = (f"{source} gather_kernel<"
                      f"{_GATHER_UNITS[mg.group(1)]},"
@@ -244,24 +251,29 @@ def kernels_against_plain(device):
             for packed, plan in plans.items():
                 tag = (f"{family} {str(dtype).split('.')[-1]} "
                        f"{'packed' if packed else 'unpacked'}")
-                y = sell_spmv_cuda(None, values, x, plan=plan)
-                torch.cuda.synchronize()
-                err = _max_err(y, sell_spmv_plain(None, values, x, plan=plan))
-                worst["sell_spmv"] = max(worst["sell_spmv"], err)
+                want = sell_spmv_plain(None, values, x, plan=plan)
                 errs = []
-                cases = [(k, 8) for k in KS]
-                if family == "random":
-                    cases.append((64, 32))  # staged in groups of warps
-                for k, kt in cases:
-                    Xk = X[:, :k]
-                    Y = sell_spmm_cuda(None, values, Xk, plan=plan, k_tile=kt)
+                for depth in DEPTHS:
+                    y = sell_spmv_cuda(None, values, x, plan=plan,
+                                       buffer_depth=depth)
                     torch.cuda.synchronize()
-                    e = _max_err(Y, sell_spmm_plain(None, values, Xk,
-                                                    plan=plan, k_tile=kt))
-                    errs.append(f"k={k}/kt={kt}:{e:.1e}")
-                    worst["sell_spmm"] = max(worst["sell_spmm"], e)
-                print(f"  {tag}: sell_spmv {err:.1e}; sell_spmm "
-                      f"{' '.join(errs)}")
+                    e = _max_err(y, want)
+                    errs.append(f"d{depth}:{e:.1e}")
+                    worst["sell_spmv"] = max(worst["sell_spmv"], e)
+                print(f"  {tag}: sell_spmv {' '.join(errs)}")
+                errs = []
+                for k in KS:
+                    Xk = X[:, :k]
+                    want = sell_spmm_plain(None, values, Xk, plan=plan)
+                    for depth in DEPTHS:
+                        Y = sell_spmm_cuda(None, values, Xk, plan=plan,
+                                           buffer_depth=depth)
+                        torch.cuda.synchronize()
+                        e = _max_err(Y, want)
+                        worst["sell_spmm"] = max(worst["sell_spmm"], e)
+                        errs.append(f"k{k}/d{depth}:{e:.1e}")
+                    del want, Y
+                print(f"  {tag}: sell_spmm {' '.join(errs)}")
             del values
         del va, plans, plan0, x, X
         clear_schedule_cache()
@@ -488,13 +500,18 @@ def times(out, smi):
     print(f"matrix: nnz {csr.nnz}, {matrix_bytes} B of values, indices and "
           f"tags; the plan's own traffic {plan_bytes} B "
           f"({values.numel()} padded elements)")
+    depth = engine.buffer_depth
+    tags = plan.tags
+    real_slots = tags.shape[0] + int((tags[:, 1:] > tags[:, :-1]).sum())
     rows = {}
     for name, kernel, plain, library, rhs, kk in (
-        ("sell_spmv", lambda: sell_spmv_cuda(None, values, x, plan=plan),
+        ("sell_spmv", lambda d: sell_spmv_cuda(None, values, x, plan=plan,
+                                               buffer_depth=d),
          lambda: sell_spmv_plain(None, values, x, plan=plan),
          lambda: torch.mv(A, x), x, 1),
         ("sell_spmm",
-         lambda: sell_spmm_cuda(None, values, X, plan=plan, k_tile=kt),
+         lambda d: sell_spmm_cuda(None, values, X, plan=plan, k_tile=kt,
+                                  buffer_depth=d),
          lambda: sell_spmm_plain(None, values, X, plan=plan, k_tile=kt),
          lambda: torch.sparse.mm(A, X), X, k),
     ):
@@ -503,19 +520,35 @@ def times(out, smi):
         flops = 2.0 * csr.nnz * kk
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
+        # buffer_depth 1 and 2 in turns (1, 2, 2, 1), each the mean of two
+        by_depth = {1: [], 2: []}
+        for d in (1, 2, 2, 1):
+            by_depth[d].append(_time_ms(lambda: kernel(d)))
+        by_depth = {d: float(np.mean(t)) for d, t in by_depth.items()}
         rows[name] = dict(
-            ms=_time_ms(kernel), plain_ms=_time_ms(plain, iters=5),
+            ms=by_depth[depth] if depth in by_depth else _time_ms(
+                lambda: kernel(depth)),
+            plain_ms=_time_ms(plain, iters=5),
             library_ms=_time_ms(library),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
         r = rows[name]
         plan_ms = (plan_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, torch sparse CSR {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes} B, "
-              f"{flops:.3g} flop) -> {r['bound_ms'] / r['ms'] * 100:.1f}% "
-              f"of the bound; the plan's own bytes once {plan_ms:.4f} ms")
+        # Every window stages each of its unique tags' block_rows rows of
+        # kk columns (padding slots are skipped): read from L2, or HBM on a
+        # miss, into shared memory once per launch.
+        staged = real_slots * plan.block_rows * kk * 4
+        print(f"{name}: kernel {r['ms']:.4f} ms at buffer_depth {depth} "
+              f"(depth 1 {by_depth[1]:.4f} ms, depth 2 {by_depth[2]:.4f} "
+              f"ms), plain {r['plain_ms']:.4f} ms, torch sparse CSR "
+              f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x "
+              f"the kernel's time), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {nbytes} B, {flops:.3g} flop) -> "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound; the "
+              f"plan's own bytes once {plan_ms:.4f} ms -> "
+              f"{plan_ms / r['ms'] * 100:.1f}% of that floor; X bytes "
+              f"staged a launch {staged} B")
     rows["coalesced_gather"] = gather_times(dev)
     return rows
 

@@ -345,11 +345,13 @@ class SpMVEngine:
     ``"auto"`` (cuda on a CUDA engine, reference on a CPU one). The kernels
     consume ``cols_per_chunk`` SELL columns per chunk: the padded width is
     rounded up to a multiple of it and the window is ``cols_per_chunk *
-    slice_height``. ``k_tile`` sets the fused matmat kernel's RHS tile
-    width; ``matmat_mode`` routes `matmat` (``"auto"``: fused on cuda,
-    per-column elsewhere). ``packed`` picks the metadata encoding
-    (``"auto"``: one int32 word per element whenever lossless).
-    ``buffer_depth`` (1..8) is validated by the kernels. ``value_dtype``
+    slice_height``. ``k_tile`` is the JAX fused matmat kernel's RHS tile
+    width, kept in signatures and keys (the Hopper kernel picks its own
+    column tile from k: `kernels.sell_spmv.launch_config`);
+    ``matmat_mode`` routes `matmat` (``"auto"``: fused on cuda, per-column
+    elsewhere). ``packed`` picks the metadata encoding (``"auto"``: one
+    int32 word per element whenever lossless). ``buffer_depth`` (1..8) is
+    the stages of the kernels' `cp.async` ring. ``value_dtype``
     stores the SELL values as ``"bf16"``/``"f32"`` (``None``/"native":
     the right-hand side's dtype); products accumulate in the promoted dtype.
     ``device`` (default ``"cuda"``) is where the plan and the execution

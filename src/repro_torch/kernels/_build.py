@@ -42,8 +42,8 @@ _I = ctypes.c_int
 # stream; csrc/coalesced_gather.cu takes table, tags, meta, out, the ints,
 # the stream.
 _SIGNATURES = {
-    "sell_spmv_launch": [_P] * 5 + [_I] * 12 + [_P],
-    "sell_spmm_launch": [_P] * 5 + [_I] * 14 + [_P],
+    "sell_spmv_launch": [_P] * 5 + [_I] * 16 + [_P],
+    "sell_spmm_launch": [_P] * 5 + [_I] * 18 + [_P],
     "coalesced_gather_launch": [_P] * 4 + [_I] * 13 + [_P],
     "sell_max_dynamic_smem": [_I, ctypes.POINTER(_I)],
 }

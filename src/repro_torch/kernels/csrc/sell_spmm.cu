@@ -4,14 +4,18 @@
 // (bodies _kernel and _kernel_buffered): Y[s*H + h, j] = sum over the
 // slice's elements of value * X[tag * block_rows + offset, j].
 //
-// Bound: device-memory bytes. Values and metadata stream once per k-tile
-// and X through the wide fetches, against two operations per element and
-// column. The TPU kernel extracts with a one-hot (window x block_rows) @
-// (block_rows x k_tile) MXU matmul; here the body in sell_common.cuh runs
-// one block per k-tile of `slices_per_block` slices, thread (j, h) computing
-// row h, column j, with each unique tag's (block_rows, k_tile) tile of X
-// copied into shared memory once per window. Columns past k in the last
-// tile are masked.
+// Bound: device-memory bytes. Values and metadata stream once per column
+// tile of up to 128 columns (once per launch at the main path's k = 64), X
+// once from HBM through the wide fetches, Y written once, against two
+// operations per element and column. The TPU kernel extracts with a one-hot
+// (window x block_rows) @ (block_rows x k_tile) MXU matmul; here the body in
+// sell_common.cuh is the NC = 8 instance: thread (h, q) of a slice keeps
+// row h's sums for 8 columns in registers, reading each element's value
+// and metadata word once from a shared stage and the X tile as two float4.
+// A buffer_depth-stage cp.async ring keeps the next steps' tags' tiles,
+// values and metadata in flight while one computes. X tiles move in
+// 16-byte pieces when k % 4 == 0 and X is 16-byte aligned, else 4-byte.
+// `k_tile` (the TPU's RHS tile) does not shape this grid.
 #include "sell_common.cuh"
 
 extern "C" int sell_spmm_launch(const void* values, const void* X,
@@ -19,12 +23,14 @@ extern "C" int sell_spmm_launch(const void* values, const void* X,
                                 int values_bf16, int packed, int n_slices,
                                 int n_chunks, int cols_per_chunk,
                                 int slice_height, int max_warps,
-                                int block_rows, int n_cols, int k, int k_tile,
-                                int slices_per_block, int group,
+                                int block_rows, int n_cols, int k, int quads,
+                                int slices_per_block, int group, int depth,
+                                int val_unit, int meta_unit, int x_unit,
                                 int smem_bytes, void* stream) {
-  const sell::Geometry g{n_slices,  n_chunks,   cols_per_chunk, slice_height,
-                         max_warps, block_rows, n_cols,         k,
-                         k_tile,    group};
-  return sell::launch(values, X, tags, meta, Y, values_bf16, packed, g,
-                      slices_per_block, smem_bytes, stream);
+  const sell::Geometry g{n_slices,   n_chunks,  cols_per_chunk, slice_height,
+                         max_warps,  block_rows, n_cols,        k,
+                         quads,      8 * quads, slices_per_block, group,
+                         depth,      val_unit,  meta_unit};
+  return sell::launch<8>(values, X, tags, meta, Y, values_bf16, packed,
+                         x_unit, g, smem_bytes, stream);
 }

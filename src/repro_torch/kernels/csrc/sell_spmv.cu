@@ -8,11 +8,12 @@
 // word read (8 bytes packed, f32 values) against one multiply-add, far below
 // the card's operations-per-byte balance. The TPU kernel extracts elements
 // with a one-hot (window x block_rows) matmul on the MXU; on Hopper that is
-// wasted work. This is the k = k_tile = 1 instance of the body in
+// wasted work. This is the NC = 1, k = 1 instance of the body in
 // sell_common.cuh: a block owns `slices_per_block` slices (H threads each);
-// per chunk each slice's threads copy its window's unique wide blocks of x
-// into shared memory once, then thread h walks the chunk's C columns and
-// accumulates in a float register.
+// a buffer_depth-stage cp.async ring stages each window's unique wide blocks
+// of x, its values and its metadata words in shared memory, the next
+// windows' copies in flight while thread h walks the current chunk's C
+// columns and accumulates in a float register.
 #include "sell_common.cuh"
 
 extern "C" int sell_spmv_launch(const void* values, const void* x,
@@ -21,13 +22,15 @@ extern "C" int sell_spmv_launch(const void* values, const void* x,
                                 int n_chunks, int cols_per_chunk,
                                 int slice_height, int max_warps,
                                 int block_rows, int n_cols,
-                                int slices_per_block, int group,
+                                int slices_per_block, int group, int depth,
+                                int val_unit, int meta_unit, int x_unit,
                                 int smem_bytes, void* stream) {
-  const sell::Geometry g{n_slices,   n_chunks, cols_per_chunk, slice_height,
-                         max_warps,  block_rows, n_cols,       1,
-                         1,          group};
-  return sell::launch(values, x, tags, meta, y, values_bf16, packed, g,
-                      slices_per_block, smem_bytes, stream);
+  const sell::Geometry g{n_slices,  n_chunks,   cols_per_chunk, slice_height,
+                         max_warps, block_rows, n_cols,         1,
+                         1,         1,          slices_per_block, group,
+                         depth,     val_unit,   meta_unit};
+  return sell::launch<1>(values, x, tags, meta, y, values_bf16, packed,
+                         x_unit, g, smem_bytes, stream);
 }
 
 extern "C" int sell_max_dynamic_smem(int device, int* out) {

@@ -1,25 +1,29 @@
 """Fused multi-column SELL SpMM: one indirect stream, k columns (port of
 `repro.kernels.sell_spmm`).
 
-Each coalesced wide fetch grabs a ``(block_rows, k_tile)`` tile of the dense
-X, so the metadata stream and the SELL values are read once per `k_tile`
-columns instead of once per column. `k_tile` is clamped to k so narrow
-batches never pay padding work, and a short last tile (``k % k_tile != 0``)
-is masked.
+In the JAX package each coalesced wide fetch grabs a ``(block_rows,
+k_tile)`` tile of the dense X, so the metadata stream and the SELL values
+are read once per `k_tile` columns. On Hopper `k_tile` keeps its
+validation and its place in signatures and engine keys, and the plain
+version still sums tile by tile, but it no longer shapes the kernel's grid:
+`launch_config` picks the Hopper column tile from k (all of k up to 128
+columns), so at the main path's k = 64 values and metadata are read once
+per launch.
 
 The kernel (`csrc/sell_spmm.cu`) replaces the TPU kernel
 `repro/kernels/sell_spmm.py:sell_spmm_pallas`. It is bound by device-memory
-bytes: values and metadata are re-read once per k-tile and X is read
-through the wide fetches, against two operations per element and column.
-One thread block owns one (slice, k-tile) pair, or a few slices of one
-k-tile when the tile is narrow; the TPU grid's sequential chunk and warp
-axes become a loop inside the block. Per chunk the block copies each
-unique tag's ``(block_rows, k_tile)`` tile of X into shared memory, then
-thread (row h, column j) walks the chunk's columns, decodes the metadata
-and accumulates ``value * tile[warp][offset][j]`` in a float32 register.
-A window whose tiles exceed the shared-memory budget is staged in groups
-of warps, one pass per group. `buffer_depth` is validated but not yet
-honoured.
+bytes: values and metadata once per column tile, X once through the wide
+fetches and Y once, against two operations per element and column. Each
+persistent thread block (as many as fit on the card) walks slices, one at
+a time at 32 rows and k <= 128; the TPU grid's sequential chunk and warp
+axes become a loop inside the block, fed by a `buffer_depth`-stage
+`cp.async` ring in shared memory that holds each window's unique
+``(block_rows, col_tile)`` tiles of X (padding tag slots skipped), its
+values and its metadata words, and runs on from slice to slice. Thread
+(row h, q) keeps row h's sums for 8 columns in float32 registers, reading
+each element's value and metadata word once and its X row as two float4;
+columns past k are masked. A window whose tiles exceed the budget of one
+stage is staged in groups of warps, each a step of the same ring.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from .sell_spmv import (
     _check_width,
     _launch_args,
     _validate_buffer_depth,
-    launch_config,
+    _plan_config,
+    _ring_args,
     plan_gather,
     resolve_device_plan,
 )
@@ -85,10 +90,6 @@ def sell_spmm_cuda(
         max_warps=max_warps, schedule=schedule, plan=plan, packed=packed,
     )
     _check_kernel_inputs(values, X, dplan, "sell_spmm_cuda")
-    kt = min(int(k_tile), k)
-    if -(-k // kt) > _MAX_GRID_Y:
-        raise ValueError(f"k={k} at k_tile={kt} needs more than "
-                         f"{_MAX_GRID_Y} k-tiles; raise k_tile")
     values = values.contiguous()
     X = X.contiguous()
     Y = torch.empty((n_slices * H, k), dtype=torch.float32,
@@ -96,18 +97,19 @@ def sell_spmm_cuda(
     if n_slices == 0:
         return Y
     lib = _build.library()
-    slices, group, smem = launch_config(
-        n_slices=n_slices, slice_height=H, k_tile=kt,
-        max_warps=dplan.max_warps, block_rows=block_rows,
-        smem_limit=_build.max_dynamic_smem(values.device),
-    )
+    cfg = _plan_config(values, dplan, k=k, cols_per_thread=8,
+                       buffer_depth=buffer_depth)
+    if cfg.col_tiles > _MAX_GRID_Y:
+        raise ValueError(f"k={k} needs {cfg.col_tiles} column tiles of "
+                         f"{cfg.col_tile}, more than {_MAX_GRID_Y}")
     with torch.cuda.device(values.device):
         rc = lib.sell_spmm_launch(
             *_launch_args(values, X, dplan),
             ctypes.c_void_p(Y.data_ptr()),
             int(values.dtype == torch.bfloat16), int(dplan.packed),
             n_slices, dplan.n_chunks, cols_per_chunk, H, dplan.max_warps,
-            block_rows, int(X.shape[0]), k, kt, slices, group, smem,
+            block_rows, int(X.shape[0]), k, cfg.quads,
+            *_ring_args(values, dplan, cfg, k, X, Y), cfg.smem_bytes,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(rc, "sell_spmm")

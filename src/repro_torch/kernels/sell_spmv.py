@@ -19,12 +19,16 @@ The kernel (`csrc/sell_spmv.cu`) replaces the TPU kernel
 `repro/kernels/sell_spmv.py:sell_spmv_pallas`. It is bound by device-memory
 bytes: per element it reads one value and one metadata word and does one
 multiply-add. The TPU kernel extracts elements with a one-hot matmul on the
-MXU; here one thread block owns a few slices, copies each window's unique
-wide blocks of x into shared memory once (the coalesced wide fetch), and
-each thread then reads its elements at ``smem[warp][offset]``. Values and
-metadata are laid out so that neighbouring threads (rows of a slice) read
-neighbouring addresses. `buffer_depth` is validated but not yet honoured by
-the kernel (a cp.async/TMA ring is later work).
+MXU; here persistent thread blocks (as many as fit on the card) each walk
+groups of a few slices through a `buffer_depth`-stage `cp.async` ring in
+shared memory: each stage holds one window's unique wide blocks of x (the
+coalesced wide fetch; padding tag slots are skipped), its values and its
+metadata words, and the next windows' copies are in flight while a thread
+per row reads its elements at ``stage[warp][offset]``. `launch_config`
+sizes the ring; a window whose wide blocks exceed the budget of one stage
+is split into groups of warps, each a step of the same ring. The shared
+body (`csrc/sell_common.cuh`) is also the SpMM kernel's: SpMV is its
+one-column instance.
 
 On a CUDA tensor `sell_spmv_cuda` launches the kernel or raises; on a CPU
 tensor `kernels.ops.sell_spmv` takes `sell_spmv_plain`, which follows the
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 
@@ -50,8 +54,8 @@ from repro_torch.core.coalescer import (
 
 from . import _build
 
-#: Default pipeline depth of both SELL kernels, kept so that signatures and
-#: engine keys match the JAX package.
+#: Default pipeline depth of both SELL kernels: the stages of their
+#: `cp.async` ring (as in the JAX package, where it is the Pallas ring's).
 DEFAULT_BUFFER_DEPTH = 2
 
 #: Upper bound on the pipeline depth.
@@ -64,7 +68,8 @@ KERNEL_VALUE_DTYPES = (torch.float32, torch.bfloat16)
 #: Threads a block aims for: 256 (eight warps) keeps several blocks per SM.
 _TARGET_THREADS = 256
 _MAX_THREADS = 1024
-_MAX_BLOCK_Z = 64
+#: Widest column tile of X a block covers: 16 threads of 8 columns a row.
+MAX_COL_TILE = 128
 
 
 @dataclasses.dataclass
@@ -323,39 +328,104 @@ def plan_gather(plan: DevicePlan, X: torch.Tensor) -> torch.Tensor:
     )
 
 
-def launch_config(
-    *, n_slices: int, slice_height: int, k_tile: int, max_warps: int,
-    block_rows: int, smem_limit: int,
-) -> Tuple[int, int, int]:
-    """Launch geometry shared by both kernels: ``(slices_per_block,
-    warps_per_group, smem_bytes)``.
+def _align128(nbytes: int) -> int:
+    """Shared-memory sections start on 128-byte lines (csrc/sell_common.cuh:
+    align128)."""
+    return -(-nbytes // 128) * 128
 
-    A slice takes ``k_tile * slice_height`` threads and, per staged warp,
-    ``block_rows * k_tile`` floats of shared memory. All of a window's warps
-    are staged at once when they fit `smem_limit`; otherwise they are staged
-    in groups that fit, one pass per group. A block then takes as many
-    slices as keep it near 256 threads and inside `smem_limit`."""
-    threads = int(k_tile) * int(slice_height)
-    if threads > _MAX_THREADS:
+
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    """Launch geometry of the shared SELL body (`csrc/sell_common.cuh`).
+
+    A slice takes ``slice_height * quads`` threads: thread (h, q) owns row h
+    and `cols_per_thread` columns of the block's column tile, which is
+    ``col_tile = cols_per_thread * quads`` columns of X wide; the grid has
+    `col_tiles` columns, one where k <= col_tile. Each slice has a ring of
+    `depth` stages of `stage_bytes`: `group` warps' (block_rows, col_tile)
+    tiles of X, then a window's values and metadata words; the rings follow
+    one zero row of col_tile floats."""
+
+    cols_per_thread: int
+    quads: int
+    col_tile: int
+    col_tiles: int
+    slices_per_block: int
+    group: int
+    depth: int
+    stage_bytes: int
+    smem_bytes: int
+    threads: int
+
+
+def launch_config(
+    *, n_slices: int, slice_height: int, k: int, cols_per_thread: int,
+    max_warps: int, block_rows: int, cols_per_chunk: int, value_bytes: int,
+    packed: bool, buffer_depth: int, smem_limit: int,
+) -> LaunchConfig:
+    """Launch geometry of both kernels (SpMV: ``k = cols_per_thread = 1``;
+    SpMM: ``cols_per_thread = 8``).
+
+    The column tile is all of k up to `MAX_COL_TILE`, so values and
+    metadata are read once per launch there, and once per tile beyond. A
+    slice takes ``slice_height * quads`` threads; where that passes a
+    block's 1,024 threads, fewer columns a row are taken, and a slice
+    taller than 1,024 rows raises. The ring has `buffer_depth` stages; a
+    stage stages all of a window's warps when ``buffer_depth`` of them fit
+    `smem_limit`, else the largest group that does (one step of the ring a
+    group); if not even one warp's tile fits, it raises. A block then takes
+    as many slices as keep it near 256 threads and inside `smem_limit`."""
+    nc = int(cols_per_thread)
+    H = int(slice_height)
+    depth = _validate_buffer_depth(buffer_depth)
+    if H > _MAX_THREADS:
         raise ValueError(
-            f"k_tile * slice_height = {threads} threads exceeds a block's "
-            f"{_MAX_THREADS}; lower k_tile"
+            f"slice_height = {H} threads exceeds a block's {_MAX_THREADS} "
+            f"threads; lower slice_height"
         )
-    per_warp = int(block_rows) * int(k_tile) * 4
-    if per_warp > smem_limit:
+    quads = max(1, min(-(-int(k) // nc), MAX_COL_TILE // nc,
+                       _MAX_THREADS // H))
+    col_tile = nc * quads
+    tps = H * quads
+    per_warp = int(block_rows) * col_tile * 4
+    window = int(cols_per_chunk) * H
+    fixed = (_align128(window * int(value_bytes))
+             + _align128(window * (1 if packed else 2) * 4))
+    zero_row = _align128(col_tile * 4)
+    budget = (smem_limit - zero_row) // depth
+    if _align128(per_warp) + fixed > budget:
         raise ValueError(
-            f"one wide block of block_rows * k_tile = {per_warp // 4} floats "
-            f"exceeds the {smem_limit}-byte shared-memory limit"
+            f"one stage of one wide block ({int(block_rows)} x {col_tile} "
+            f"floats) plus a window's values and metadata ({fixed} B) "
+            f"exceeds the {smem_limit}-byte shared-memory limit at "
+            f"buffer_depth={depth}"
         )
-    group = max(1, min(int(max_warps), smem_limit // per_warp))
+    # whole 128-byte lines of tiles, so that the aligned stage fits too
+    group = min(int(max_warps), (budget - fixed) // 128 * 128 // per_warp)
+    stage = _align128(group * per_warp) + fixed
     slices = max(1, min(
-        _TARGET_THREADS // threads,
-        _MAX_THREADS // threads,
-        _MAX_BLOCK_Z,
+        _TARGET_THREADS // tps,
+        _MAX_THREADS // tps,
         int(n_slices),
-        smem_limit // (group * per_warp),
+        (smem_limit - zero_row) // (depth * stage),
     ))
-    return slices, group, slices * group * per_warp
+    return LaunchConfig(
+        cols_per_thread=nc, quads=quads, col_tile=col_tile,
+        col_tiles=-(-int(k) // col_tile), slices_per_block=slices,
+        group=group, depth=depth, stage_bytes=stage,
+        smem_bytes=zero_row + slices * depth * stage,
+        threads=slices * tps,
+    )
+
+
+def copy_unit(nbytes: int, *ptrs: int) -> int:
+    """The widest piece (16, 4 or 2 bytes) that divides `nbytes` and every
+    address in `ptrs`: the unit in which the kernels stage a window's
+    values or metadata."""
+    for unit in (16, 4, 2):
+        if nbytes % unit == 0 and all(p % unit == 0 for p in ptrs):
+            return unit
+    raise ValueError(f"{nbytes} bytes at {ptrs} are not 2-byte aligned")
 
 
 def _check_kernel_inputs(values, x, plan: DevicePlan, name: str) -> None:
@@ -398,6 +468,34 @@ def _launch_args(values, x, plan: DevicePlan):
     )
 
 
+def _plan_config(values, plan: DevicePlan, *, k: int, cols_per_thread: int,
+                 buffer_depth: int) -> LaunchConfig:
+    return launch_config(
+        n_slices=plan.n_slices, slice_height=plan.slice_height, k=k,
+        cols_per_thread=cols_per_thread, max_warps=plan.max_warps,
+        block_rows=plan.block_rows, cols_per_chunk=plan.cols_per_chunk,
+        value_bytes=values.element_size(), packed=plan.packed,
+        buffer_depth=buffer_depth,
+        smem_limit=_build.max_dynamic_smem(values.device),
+    )
+
+
+def _ring_args(values, plan: DevicePlan, cfg: LaunchConfig, x_width: int,
+               *rhs: torch.Tensor):
+    """slices_per_block, group, depth, then the units in which a window's
+    values, its metadata and its wide blocks of X are staged: X in 16-byte
+    pieces when a copy row's `x_width` floats and every `rhs` address
+    allow it, else 4-byte."""
+    lanes = 1 if plan.packed else 2
+    x16 = x_width % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rhs)
+    return (
+        cfg.slices_per_block, cfg.group, cfg.depth,
+        copy_unit(plan.window * values.element_size(), values.data_ptr()),
+        copy_unit(plan.window * lanes * 4, plan.elem_meta.data_ptr()),
+        16 if x16 else 4,
+    )
+
+
 def sell_spmv_cuda(
     colidx: Optional[torch.Tensor],  # (n_slices, W, H) int32, or None with a plan
     values: torch.Tensor,  # (n_slices, W, H) float32 | bfloat16, CUDA
@@ -432,18 +530,16 @@ def sell_spmv_cuda(
     if y.numel() == 0:
         return y
     lib = _build.library()
-    slices, group, smem = launch_config(
-        n_slices=n_slices, slice_height=H, k_tile=1,
-        max_warps=dplan.max_warps, block_rows=block_rows,
-        smem_limit=_build.max_dynamic_smem(values.device),
-    )
+    cfg = _plan_config(values, dplan, k=1, cols_per_thread=1,
+                       buffer_depth=buffer_depth)
     with torch.cuda.device(values.device):
         rc = lib.sell_spmv_launch(
             *_launch_args(values, x, dplan),
             ctypes.c_void_p(y.data_ptr()),
             int(values.dtype == torch.bfloat16), int(dplan.packed),
             n_slices, dplan.n_chunks, cols_per_chunk, H, dplan.max_warps,
-            block_rows, int(x.shape[0]), slices, group, smem,
+            block_rows, int(x.shape[0]),
+            *_ring_args(values, dplan, cfg, block_rows, x), cfg.smem_bytes,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(rc, "sell_spmv")

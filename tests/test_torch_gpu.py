@@ -73,7 +73,8 @@ CASES = {
 @pytest.mark.parametrize("family", sorted(CASES))
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype):
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype, depth):
     csr = CASES[family]()
     va, plan = _plan_case(csr, cpc=8, block_rows=8, packed=packed,
                           device=cuda)
@@ -82,16 +83,22 @@ def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype):
     x = torch.as_tensor(rng.standard_normal(csr.n_cols).astype(np.float32),
                         device=cuda)
     before = sell_spmv_cuda.launches
-    y = ops.sell_spmv(None, values, x, plan=plan, cols_per_chunk=8)
+    y = ops.sell_spmv(None, values, x, plan=plan, cols_per_chunk=8,
+                      buffer_depth=depth)
     torch.cuda.synchronize()
     assert sell_spmv_cuda.launches == before + 1
     _close(y, sell_spmv_plain(None, values, x, plan=plan, cols_per_chunk=8))
 
 
-@pytest.mark.parametrize("k", [1, 7, 8, 33])
+@pytest.mark.parametrize("k", [1, 7, 8, 33, 64, 65, 128, 200])
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sell_spmm_kernel_matches_plain(cuda, k, packed, dtype):
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_sell_spmm_kernel_matches_plain(cuda, k, packed, dtype, depth):
+    """Every k the column tile meets: one column (k = 1), k not a multiple
+    of 4 or 8 (7, 33, 65: 4-byte copies, masked columns), k = 8 and the
+    main path's 64 (whole rows in 16-byte pieces), one full 128-column
+    tile, and k = 200 (two tiles)."""
     va, plan = _plan_case(CASES["banded"](), cpc=4, block_rows=8,
                           packed=packed, device=cuda)
     rng = np.random.default_rng(4)
@@ -99,31 +106,101 @@ def test_sell_spmm_kernel_matches_plain(cuda, k, packed, dtype):
     X = torch.as_tensor(rng.standard_normal((3000, k)).astype(np.float32),
                         device=cuda)
     before = sell_spmm_cuda.launches
-    Y = ops.sell_spmm(None, values, X, plan=plan, cols_per_chunk=4, k_tile=8)
+    Y = ops.sell_spmm(None, values, X, plan=plan, cols_per_chunk=4, k_tile=8,
+                      buffer_depth=depth)
     torch.cuda.synchronize()
     assert sell_spmm_cuda.launches == before + 1
     _close(Y, sell_spmm_plain(None, values, X, plan=plan, cols_per_chunk=4,
                               k_tile=8))
 
 
-def test_sell_spmm_stages_large_windows_in_groups(cuda):
-    """A random plan at k_tile=32 needs more shared memory per window than a
-    block may take, so the kernel stages each window in groups of warps."""
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_sell_spmm_stages_large_windows_in_groups(cuda, depth):
+    """A random plan at k = 64 needs more shared memory per window than a
+    stage of the ring may take, so the kernel stages each window in groups
+    of warps, one step of the ring a group."""
     va, plan = _plan_case(CASES["random"](), cpc=8, block_rows=8,
                           packed=True, device=cuda)
-    limit = _build.max_dynamic_smem(cuda)
-    _, group, _ = launch_config(
-        n_slices=plan.n_slices, slice_height=32, k_tile=32,
-        max_warps=plan.max_warps, block_rows=8, smem_limit=limit,
-    )
-    assert group < plan.max_warps  # the multi-pass path
-    rng = np.random.default_rng(5)
     values = torch.as_tensor(va).to(torch.float32).to(cuda)
+    cfg = launch_config(
+        n_slices=plan.n_slices, slice_height=plan.slice_height, k=64,
+        cols_per_thread=8, max_warps=plan.max_warps, block_rows=8,
+        cols_per_chunk=8, value_bytes=4, packed=True, buffer_depth=depth,
+        smem_limit=_build.max_dynamic_smem(cuda),
+    )
+    assert cfg.group < plan.max_warps  # the multi-step path
+    rng = np.random.default_rng(5)
     X = torch.as_tensor(rng.standard_normal((16384, 64)).astype(np.float32),
                         device=cuda)
-    Y = sell_spmm_cuda(None, values, X, plan=plan, k_tile=32)
+    Y = sell_spmm_cuda(None, values, X, plan=plan, buffer_depth=depth)
     torch.cuda.synchronize()
-    _close(Y, sell_spmm_plain(None, values, X, plan=plan, k_tile=32))
+    _close(Y, sell_spmm_plain(None, values, X, plan=plan))
+
+
+def _offset_view(t, shift):
+    """A contiguous copy of `t` whose storage starts `shift` elements into a
+    larger buffer: an address not aligned to 16 bytes."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_stage_unaligned_inputs(cuda, dtype):
+    """Values and X at addresses that are not 16-byte aligned: the windows'
+    values are staged in 4-byte (f32) or 2-byte (bf16) pieces and X in
+    4-byte pieces, with the same result."""
+    va, plan = _plan_case(CASES["banded"](), cpc=8, block_rows=8,
+                          packed=True, device=cuda)
+    values = _offset_view(torch.as_tensor(va).to(dtype).to(cuda), 1)
+    rng = np.random.default_rng(10)
+    X = _offset_view(torch.as_tensor(rng.standard_normal((3000, 64)).astype(
+        np.float32), device=cuda), 1)
+    assert values.data_ptr() % 16 and X.data_ptr() % 16
+    _close(sell_spmm_cuda(None, values, X, plan=plan),
+           sell_spmm_plain(None, values, X, plan=plan))
+    _close(sell_spmv_cuda(None, values, X[:, 3].contiguous(), plan=plan),
+           sell_spmv_plain(None, values, X[:, 3], plan=plan))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [7, 64])
+@pytest.mark.parametrize("block_rows", [7, 8])
+def test_kernels_zero_fill_past_the_last_row_of_x(cuda, k, block_rows):
+    """2,999 columns: the last wide block of x/X is partial (or, at
+    block_rows 7, every block is a 7-row tile copied in 4-byte pieces), and
+    its rows past n_cols read as 0."""
+    csr = matrices.banded(2999, 24, 0.8)(seed=11)
+    va, plan = _plan_case(csr, cpc=8, block_rows=block_rows, packed=True,
+                          device=cuda)
+    values = torch.as_tensor(va).to(torch.float32).to(cuda)
+    rng = np.random.default_rng(12)
+    X = torch.as_tensor(rng.standard_normal((2999, k)).astype(np.float32),
+                        device=cuda)
+    kw = dict(plan=plan, block_rows=block_rows)
+    _close(sell_spmm_cuda(None, values, X, **kw),
+           sell_spmm_plain(None, values, X, **kw))
+    x = X[:, 0].contiguous()
+    _close(sell_spmv_cuda(None, values, x, **kw),
+           sell_spmv_plain(None, values, x, **kw))
+    torch.cuda.synchronize()
+
+
+def test_kernels_raise_where_launch_config_refuses(cuda):
+    """A geometry the kernel cannot take raises before any launch; it never
+    falls back to the plain version."""
+    va, plan = _plan_case(CASES["banded"](), cpc=8, block_rows=16384,
+                          packed=True, device=cuda)
+    values = torch.as_tensor(va).to(torch.float32).to(cuda)
+    X = torch.zeros((3000, 64), device=cuda)
+    before = (sell_spmv_cuda.launches, sell_spmm_cuda.launches)
+    with pytest.raises(ValueError, match="shared-memory"):
+        ops.sell_spmm(None, values, X, plan=plan, block_rows=16384)
+    with pytest.raises(ValueError, match="shared-memory"):
+        sell_spmv_cuda(None, values, X[:, 0].contiguous(), plan=plan,
+                       block_rows=16384, buffer_depth=8)
+    assert (sell_spmv_cuda.launches, sell_spmm_cuda.launches) == before
 
 
 def test_kernel_rejects_cpu_and_wrong_dtypes(cuda):

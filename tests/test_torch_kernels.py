@@ -220,32 +220,115 @@ def test_ops_runs_plain_on_cpu_and_cuda_wrappers_refuse_cpu_tensors():
     assert (tsv.sell_spmv_cuda.launches, sell_spmm_cuda.launches) == before
 
 
-def test_launch_config_fits_shared_memory_and_threads():
-    limit = 232448  # H100: 227 KB a block may opt into
-    # banded spmv: 8 slices of 32 threads, all 9 warps staged at once
-    assert tsv.launch_config(n_slices=31250, slice_height=32, k_tile=1,
-                             max_warps=9, block_rows=8,
-                             smem_limit=limit) == (8, 9, 8 * 9 * 8 * 4)
-    # random spmm at k_tile 8: one 256-thread slice, 64 KB of wide blocks
-    assert tsv.launch_config(n_slices=4096, slice_height=32, k_tile=8,
-                             max_warps=256, block_rows=8,
-                             smem_limit=limit) == (1, 256, 65536)
-    # at k_tile 32 a window's tiles exceed the budget: staged in groups
-    s, group, smem = tsv.launch_config(n_slices=4096, slice_height=32,
-                                       k_tile=32, max_warps=256,
-                                       block_rows=8, smem_limit=limit)
-    assert (s, group) == (1, limit // (8 * 32 * 4)) and group < 256
-    assert smem <= limit
+LIMIT = 232448  # H100: 227 KB a block may opt into
+# The main path's banded plan (1M rows) and the random plan of chip_smoke.py.
+BANDED = dict(n_slices=31250, slice_height=32, max_warps=9, block_rows=8,
+              cols_per_chunk=8, value_bytes=4, packed=True, smem_limit=LIMIT)
+RANDOM = {**BANDED, "n_slices": 4096, "max_warps": 256}
+
+
+def _lc(base, **kw):
+    return tsv.launch_config(**{**base, "buffer_depth": 2, **kw})
+
+
+def _lc_banded_spmv():
+    # 8 slices of 32 threads, all 9 warps staged: 288 B of x, 1 KB of
+    # values and 1 KB of packed metadata a stage (each on 128-byte lines),
+    # two stages a slice
+    cfg = _lc(BANDED, k=1, cols_per_thread=1)
+    assert (cfg.quads, cfg.col_tile, cfg.col_tiles) == (1, 1, 1)
+    assert (cfg.slices_per_block, cfg.group, cfg.depth) == (8, 9, 2)
+    assert cfg.stage_bytes == 384 + 1024 + 1024
+    assert cfg.smem_bytes == 128 + 8 * 2 * cfg.stage_bytes  # + the zero row
+    assert cfg.threads == 256
+
+
+def _lc_banded_spmm_reads_the_matrix_once():
+    # k = 64: one column tile, one block's pass per slice (256 threads of
+    # 8 columns), a 2 KB tile per warp: 40 KB at depth 2
+    cfg = _lc(BANDED, k=64, cols_per_thread=8)
+    assert (cfg.quads, cfg.col_tile, cfg.col_tiles) == (8, 64, 1)
+    assert (cfg.slices_per_block, cfg.group, cfg.threads) == (1, 9, 256)
+    assert cfg.smem_bytes == 256 + 2 * (9 * 8 * 64 * 4 + 2048) == 41216
+
+
+def _lc_random_plan_stages_warps_in_groups():
+    # 256 warps of 2 KB do not fit half the budget: groups of 55 warps
+    cfg = _lc(RANDOM, k=64, cols_per_thread=8)
+    assert cfg.group == ((LIMIT - 256) // 2 - 2048) // 2048 == 55
+    assert cfg.smem_bytes <= LIMIT
+    spmv = _lc(RANDOM, k=1, cols_per_thread=1)  # all warps of a window
+    assert spmv.group == 256
+
+
+def _lc_ring_grows_with_buffer_depth():
+    cfgs = [_lc(BANDED, k=64, cols_per_thread=8, buffer_depth=d)
+            for d in (1, 2, 4, 8)]
+    assert [c.depth for c in cfgs] == [1, 2, 4, 8]
+    assert len({c.stage_bytes for c in cfgs}) == 1
+    assert [c.smem_bytes for c in cfgs] == [
+        256 + d * cfgs[0].stage_bytes for d in (1, 2, 4, 8)]
+    # deeper rings leave less room a stage: smaller groups of warps
+    rnd = [_lc(RANDOM, k=64, cols_per_thread=8, buffer_depth=d).group
+           for d in (1, 2, 4)]
+    assert rnd[0] > rnd[1] > rnd[2] >= 1
+
+
+def _lc_k_above_the_column_tile():
+    for k, tiles in ((128, 1), (129, 2), (200, 2), (384, 3)):
+        cfg = _lc(BANDED, k=k, cols_per_thread=8)
+        assert (cfg.col_tile, cfg.col_tiles) == (128, tiles)
+    for k, quads in ((7, 1), (33, 5), (65, 9)):
+        cfg = _lc(BANDED, k=k, cols_per_thread=8)
+        assert (cfg.quads, cfg.col_tiles) == (quads, 1)
+
+
+def _lc_few_or_tall_slices():
     # few slices never give a block more slices than exist
-    assert tsv.launch_config(n_slices=2, slice_height=8, k_tile=1,
-                             max_warps=4, block_rows=8,
-                             smem_limit=limit)[0] == 2
+    assert _lc({**BANDED, "n_slices": 2, "slice_height": 8}, k=1,
+               cols_per_thread=1).slices_per_block == 2
+    # a 256-row slice takes 4 threads a row to stay within 1,024
+    cfg = _lc({**BANDED, "slice_height": 256}, k=64, cols_per_thread=8)
+    assert (cfg.quads, cfg.col_tiles, cfg.threads) == (4, 2, 1024)
+
+
+def _lc_refuses_too_many_threads():
     with pytest.raises(ValueError, match="threads"):
-        tsv.launch_config(n_slices=1, slice_height=32, k_tile=64,
-                          max_warps=1, block_rows=8, smem_limit=limit)
+        _lc({**BANDED, "slice_height": 2048}, k=1, cols_per_thread=1)
+
+
+def _lc_refuses_too_much_shared_memory():
     with pytest.raises(ValueError, match="shared-memory"):
-        tsv.launch_config(n_slices=1, slice_height=1, k_tile=512,
-                          max_warps=1, block_rows=256, smem_limit=limit)
+        _lc({**BANDED, "block_rows": 4096}, k=64, cols_per_thread=8)
+    # what fits one stage may not fit a deeper ring
+    _lc({**BANDED, "block_rows": 200}, k=64, cols_per_thread=8,
+        buffer_depth=1)
+    with pytest.raises(ValueError, match="shared-memory"):
+        _lc({**BANDED, "block_rows": 200}, k=64, cols_per_thread=8,
+            buffer_depth=8)
+    with pytest.raises(ValueError, match="buffer_depth"):
+        _lc(BANDED, k=64, cols_per_thread=8, buffer_depth=9)
+
+
+LAUNCH_CASES = {f.__name__[4:]: f for f in (
+    _lc_banded_spmv, _lc_banded_spmm_reads_the_matrix_once,
+    _lc_random_plan_stages_warps_in_groups, _lc_ring_grows_with_buffer_depth,
+    _lc_k_above_the_column_tile, _lc_few_or_tall_slices,
+    _lc_refuses_too_many_threads, _lc_refuses_too_much_shared_memory)}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_launch_config_fits_shared_memory_and_threads(case):
+    """The Hopper geometry `launch_config` gives both kernels: the column
+    tile from k, the ring from buffer_depth, and its two refusals."""
+    LAUNCH_CASES[case]()
+
+
+@pytest.mark.parametrize("nbytes,ptr,unit", [
+    (1024, 4096, 16), (1024, 4104, 4), (12, 4096, 4), (42, 4096, 2),
+    (1024, 4098, 2)])
+def test_copy_unit_is_the_widest_dividing_piece(nbytes, ptr, unit):
+    assert tsv.copy_unit(nbytes, ptr) == unit
 
 
 def test_cuda_wrappers_check_the_plan_before_launching(monkeypatch):
