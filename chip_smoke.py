@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise: float32 sums
    of at most ~40 products per row, taken in another order. Then
    `coalesced_gather`, which must equal its plain version and
-   ``table[idx]`` bitwise (as bytes), on (a) the paged-KV shape of phase 5:
+   ``table[idx]`` bitwise (as bytes) on every path a case can take (the
+   TMA bulk path where rows and bases are 16-byte multiples, the vector-unit
+   path always), on (a) the paged-KV shape of phase 5:
    a (1040, 16384) float32 page pool gathered through the static page
    table, block_rows 1, window 256, packed and unpacked metadata; (b) the
    same pool with the first 48 of each request's 65 pages shared (a
@@ -48,7 +50,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and 2. For the
    gather (shape (a); (b) and (c) are printed too) the bytes are each
    distinct row read once, the output rows written once, and the plan's
-   metadata and tags.
+   metadata and tags; beside it, the rows the kernel reads by design (each
+   distinct row of a window once), the time those bytes take, and the
+   unit path's time on the same data; the same kernel through a plan that
+   makes every element a key of its own (one read per element, no row
+   read once for several outputs: what the fan-out saves); for (a), a
+   device copy of the pool (``Tensor.copy_``) as the card's practical rate
+   for the same bytes. Then both paths at 16-byte-aligned float32 rows of
+   64 bytes to 8 KB through (c)'s index stream, where the wrapper's choice
+   between them (`BULK_MIN_ROW_BYTES`) lies.
 5. The paged path: `repro_torch.launch.serve` with ``--arch llama3-8b
    --paged --batch 16 --prompt-len 1024 --decode-steps 16 --page-block 16``
    in process (32 layers, 32 heads, 8 KV heads, head_dim 128; 65 pages a
@@ -106,9 +116,12 @@ PAGED_ARGV = ["--arch", "llama3-8b", "--paged", "--batch", "16",
 PAGED_BATCH, PAGED_PAGES, PAGE_ROW = 16, 65, 16 * 8 * 128
 TOKEN_ROWS, TOKEN_DIM = 128256, 4096  # llama3-8b's vocabulary and width
 GATHER_WINDOW = 256
-# ptxas names the gather's vector unit by its mangled type.
+# ptxas names the gather unit path's vector unit by its mangled type.
 _GATHER_UNITS = {"5uint4": "16B", "5uint2": "8B", "j": "4B", "t": "2B",
                  "h": "1B"}
+GATHER_PATHS = ("bulk", "unit")
+# Row bytes at which phase 4 times both gather paths on aligned rows.
+ALIGNED_ROW_BYTES = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
 
 def _phase(name):
@@ -178,7 +191,8 @@ def environment_and_build():
     for line in _build.build_log().splitlines():
         m = re.search(
             r"sell_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)ELi(\d+)E", line)
-        mg = re.search(r"gather_kernelI(5uint4|5uint2|j|t|h)Lb([01])", line)
+        mg = re.search(
+            r"gather_(bulk|unit)_kernelI(5uint4|5uint2|j|t|h)?Lb([01])", line)
         if line.startswith("== "):
             source = line[3:]
         elif "Compiling entry" in line and m:
@@ -187,9 +201,10 @@ def environment_and_build():
                      f"{'packed' if m.group(2) == '1' else 'unpacked'},"
                      f"NC={m.group(3)},X {m.group(4)}B>")
         elif "Compiling entry" in line and mg:
-            entry = (f"{source} gather_kernel<"
-                     f"{_GATHER_UNITS[mg.group(1)]},"
-                     f"{'packed' if mg.group(2) == '1' else 'unpacked'}>")
+            unit = (f"{_GATHER_UNITS[mg.group(2)]},"
+                    if mg.group(1) == "unit" else "")
+            entry = (f"{source} gather_{mg.group(1)}_kernel<{unit}"
+                     f"{'packed' if mg.group(3) == '1' else 'unpacked'}>")
         elif "Used" in line and entry:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
     return smi
@@ -354,34 +369,48 @@ def gather_plans(idx, block_rows, device):
     return {p: build_gather_plan(sched, packed=p) for p in (True, False)}
 
 
+def gather_paths(table, out_ptr):
+    """The kernel's paths a table can take (the bulk path needs 16-byte
+    rows and bases), and the one `gather_launch_config` picks."""
+    from repro_torch.kernels.coalesced_gather import auto_path, gather_unit
+
+    row_bytes = table.shape[1] * table.element_size()
+    unit = gather_unit(row_bytes, table.data_ptr(), out_ptr)
+    return ((GATHER_PATHS if unit == 16 else ("unit",)),
+            auto_path(row_bytes, unit), unit)
+
+
 def gather_against_plain(device):
     import torch
 
     from repro_torch.core.coalescer import coalesce_stats
     from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
-        coalesced_gather_plain, gather_unit
+        coalesced_gather_plain
 
     worst = 0.0
     for name, (table, idx, br) in gather_cases(device).items():
         wide, rate = coalesce_stats(idx, window=GATHER_WINDOW, block_rows=br)
         want_ref = table[torch.as_tensor(idx, device=device).long()]
-        unit = gather_unit(table.shape[1] * table.element_size(),
-                           table.data_ptr(), want_ref.data_ptr())
+        paths, auto, unit = gather_paths(table, want_ref.data_ptr())
         for packed, plan in gather_plans(idx, br, device).items():
             kw = dict(window=GATHER_WINDOW, block_rows=br, plan=plan,
                       n_out=len(idx))
-            got = coalesced_gather_cuda(table, None, **kw)
-            torch.cuda.synchronize()
-            _bytes_equal(got, coalesced_gather_plain(table, None, **kw))
-            _bytes_equal(got, want_ref)
-            if bool(torch.isfinite(want_ref).all()):
-                worst = max(worst, float(
-                    (got.float() - want_ref.float()).abs().max()))
+            want = coalesced_gather_plain(table, None, **kw)
+            for path in paths:
+                got = coalesced_gather_cuda(table, None, path=path, **kw)
+                torch.cuda.synchronize()
+                _bytes_equal(got, want)
+                _bytes_equal(got, want_ref)
+                if bool(torch.isfinite(want_ref).all()):
+                    worst = max(worst, float(
+                        (got.float() - want_ref.float()).abs().max()))
+                del got
         print(f"  coalesced_gather {name}: table {tuple(table.shape)}, "
               f"{len(idx)} ids, block_rows {br}, max_warps "
               f"{plan.max_warps}, {wide} wide accesses (coalesce rate "
-              f"{rate:.2f}), {unit}-byte units: bitwise equal to the plain "
-              f"version and table[idx], packed and unpacked")
+              f"{rate:.2f}), {unit}-byte units, paths {'/'.join(paths)} "
+              f"(auto: {auto}): bitwise equal to the plain version and "
+              f"table[idx], packed and unpacked, on every path")
     torch.cuda.empty_cache()
     return worst
 
@@ -553,9 +582,41 @@ def times(out, smi):
     return rows
 
 
+def rows_read_by_design(idx, window=GATHER_WINDOW):
+    """Rows the gather kernel reads: each distinct row of a window once."""
+    return sum(len(np.unique(idx[i:i + window]))
+               for i in range(0, len(idx), window))
+
+
+def per_element_plan(idx, device):
+    """A gather plan in which every element is a key of its own (its row as
+    the tag of its own warp, block_rows 1): the kernel then reads each
+    element's row once per element, as if it had no fan-out."""
+    import torch
+
+    from repro_torch.core.coalescer import BlockSchedule
+    from repro_torch.kernels.coalesced_gather import build_gather_plan
+
+    W = GATHER_WINDOW
+    n_w = -(-len(idx) // W)
+    tags = np.concatenate([idx, np.full(n_w * W - len(idx), idx[0])])
+    cols = np.arange(n_w * W).reshape(n_w, W)
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return build_gather_plan(BlockSchedule(
+        tags=t(tags.reshape(n_w, W)),
+        n_warps=t(np.minimum(W, len(idx) - np.arange(n_w) * W)),
+        elem_warp=t(cols % W), elem_offset=t(np.zeros_like(cols)),
+        elem_valid=t(cols < len(idx), torch.bool), window=W, block_rows=1))
+
+
 def gather_times(device):
     """Times of the gather at cases (a), (b) and (c) of phase 2 (packed
-    plans); returns case (a)'s row."""
+    plans), on the path the wrapper picks, on the unit path and through a
+    plan of one key per element, then both paths on aligned rows;
+    returns case (a)'s row."""
     import torch
 
     from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
@@ -570,8 +631,11 @@ def gather_times(device):
                   n_out=len(idx))
         idx_t = torch.as_tensor(idx, device=device).long()
         row_bytes = table.shape[1] * table.element_size()
-        nbytes = (len(np.unique(idx)) + len(idx)) * row_bytes + (
+        distinct = len(np.unique(idx))
+        by_design = rows_read_by_design(idx)
+        nbytes = (distinct + len(idx)) * row_bytes + (
             plan.elem_meta.numel() + plan.tags.numel()) * 4
+        _, auto, _ = gather_paths(table, table.data_ptr())
         r = dict(
             ms=_time_ms(lambda: coalesced_gather_cuda(table, None, **kw)),
             plain_ms=_time_ms(lambda: coalesced_gather_plain(
@@ -579,15 +643,71 @@ def gather_times(device):
             library_ms=_time_ms(lambda: torch.index_select(table, 0, idx_t)),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         )
-        print(f"coalesced_gather {name}: kernel {r['ms']:.4f} ms, plain "
+        unit_ms = _time_ms(lambda: coalesced_gather_cuda(
+            table, None, path="unit", **kw))
+        each = dict(kw, block_rows=1, plan=per_element_plan(idx, device))
+        _bytes_equal(coalesced_gather_cuda(table, None, **each),
+                     table[idx_t])
+        each_ms = _time_ms(lambda: coalesced_gather_cuda(table, None, **each))
+        design_ms = ((by_design + len(idx)) * row_bytes + (
+            plan.elem_meta.numel() + plan.tags.numel()) * 4
+        ) / HBM_BYTES_PER_S * 1e3
+        print(f"coalesced_gather {name}: kernel {r['ms']:.4f} ms ({auto} "
+              f"path; unit path {unit_ms:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, torch.index_select "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"(bytes: {nbytes} B, {len(np.unique(idx))} distinct rows of "
-              f"{row_bytes} B read, {len(idx)} written, metadata and tags) "
-              f"-> {r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+              f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x "
+              f"the kernel's time), bound {r['bound_ms']:.4f} ms (bytes: "
+              f"{nbytes} B, {distinct} distinct rows of {row_bytes} B read, "
+              f"{len(idx)} written, metadata and tags) -> "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound; rows the "
+              f"kernel reads by design {by_design} (each distinct row of a "
+              f"window once), those bytes once {design_ms:.4f} ms -> "
+              f"{design_ms / r['ms'] * 100:.1f}%; one key per element "
+              f"({len(idx)} rows read) {each_ms:.4f} ms, "
+              f"{each_ms / r['ms']:.3f}x the kernel's time")
+        if name[0] == "a":
+            # the card's practical rate for the same bytes: one device copy
+            # of the pool (every row read once and written once)
+            dst = torch.empty_like(table)
+            copy_ms = _time_ms(lambda: dst.copy_(table))
+            print(f"  device copy of the pool ({2 * table.numel() * 4} B "
+                  f"moved): {copy_ms:.4f} ms, the kernel "
+                  f"{r['ms'] / copy_ms:.2f}x that")
+            del dst
         rows[name[0]] = r
+        if name[0] == "c":
+            aligned_rows_both_paths(device, idx, br)
     torch.cuda.empty_cache()
     return rows["a"]
+
+
+def aligned_rows_both_paths(device, idx, block_rows):
+    """Both gather paths on 16-byte-aligned float32 rows of
+    `ALIGNED_ROW_BYTES` through one index stream (case (c)'s)."""
+    import torch
+
+    from repro_torch.kernels.coalesced_gather import BULK_MIN_ROW_BYTES, \
+        coalesced_gather_cuda
+
+    plan = gather_plans(idx, block_rows, device)[True]
+    kw = dict(window=GATHER_WINDOW, block_rows=block_rows, plan=plan,
+              n_out=len(idx))
+    gen = torch.Generator(device=device).manual_seed(13)
+    cells = []
+    for row_bytes in ALIGNED_ROW_BYTES:
+        table = torch.randn((TOKEN_ROWS, row_bytes // 4), generator=gen,
+                            device=device)
+        want = table[torch.as_tensor(idx, device=device).long()]
+        ms = {}
+        for path in GATHER_PATHS:
+            _bytes_equal(coalesced_gather_cuda(table, None, path=path, **kw),
+                         want)
+            ms[path] = _time_ms(lambda: coalesced_gather_cuda(
+                table, None, path=path, **kw))
+        cells.append(f"{row_bytes} B bulk {ms['bulk']:.4f} unit "
+                     f"{ms['unit']:.4f}")
+    print(f"  aligned f32 rows, (c)'s ids, ms by path (bulk from "
+          f"{BULK_MIN_ROW_BYTES} B by default): " + "; ".join(cells))
 
 
 def paged_path(device):

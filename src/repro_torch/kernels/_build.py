@@ -39,12 +39,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Argument lists of the C launch functions: csrc/sell_spmv.cu and
 # sell_spmm.cu take values, x/X, tags, meta, y/Y, then the ints, then the
-# stream; csrc/coalesced_gather.cu takes table, tags, meta, out, the ints,
-# the stream.
+# stream; csrc/coalesced_gather.cu takes table, tags, meta, out, its work
+# queue, the ints, the stream.
 _SIGNATURES = {
     "sell_spmv_launch": [_P] * 5 + [_I] * 16 + [_P],
     "sell_spmm_launch": [_P] * 5 + [_I] * 18 + [_P],
-    "coalesced_gather_launch": [_P] * 4 + [_I] * 13 + [_P],
+    "coalesced_gather_launch": [_P] * 5 + [_I] * 20 + [_P],
     "sell_max_dynamic_smem": [_I, ctypes.POINTER(_I)],
 }
 

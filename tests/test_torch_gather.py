@@ -187,13 +187,358 @@ def test_ops_dispatch_and_the_kernel_wrapper_on_cpu():
         tg.coalesced_gather_cuda(table, idx, window=WINDOW, block_rows=8)
 
 
+# The card the launch geometry is sized for in these tests: an H100's SMs and
+# the shared memory a block may opt into.
+N_SMS, SMEM_LIMIT = 132, 232448
+
+
+def _config(**kw):
+    kw.setdefault("n_sms", N_SMS)
+    kw.setdefault("smem_limit", SMEM_LIMIT)
+    return tg.gather_launch_config(**kw)
+
+
 def test_launch_geometry_helpers():
     assert tg.gather_unit(65536, 256, 512) == 16
     assert tg.gather_unit(6, 256, 512) == 2  # D = 3 bf16
     assert tg.gather_unit(64, 256, 8) == 8  # an 8-byte aligned pointer
-    # the paged shape: 5 windows of 4,096 16-byte units -> 32-unit tiles
-    assert tg.gather_tile_units(5, 4096, 132) == 32
-    assert tg.gather_tile_units(1, 3, 132) == 3  # a narrow row: one tile
+    # the paged shape: 5 windows of 64 KB rows, 4 tiles of 16 KB, 64 groups
+    # a full window and 4 for the 16 elements of the last: about 4 items for
+    # each of 2 x 132 blocks
+    cfg = _config(n_out=1040, window=256, max_warps=256, block_rows=1,
+                  row_bytes=65536, unit=16)
+    assert (cfg.path, cfg.tile, cfg.n_tiles, cfg.depth) == ("bulk", 16384,
+                                                           4, 4)
+    assert (cfg.windows, cfg.groups_full, cfg.groups_last) == (5, 64, 4)
+    assert cfg.items == (4 * 64 + 4) * 4 and cfg.grid == 2 * N_SMS
+    assert (cfg.chunk, cfg.chunks) == (256, 1)  # one fan-out a window
+    assert cfg.smem_bytes == tg.fanout_smem_bytes(
+        chunk=256, max_warps=256, block_rows=1, depth=4, stage_bytes=16384)
     _, tb = _schedules(_stream(45), 8)
     plan = tg.build_gather_plan(tb)
-    assert tg.gather_smem_bytes(plan) == WINDOW * 8 + plan.max_warps * 4
+    narrow = _config(n_out=75, window=WINDOW, max_warps=plan.max_warps,
+                     block_rows=8, row_bytes=6, unit=2)
+    assert (narrow.path, narrow.tile, narrow.n_tiles, narrow.depth) == (
+        "unit", 3, 1, 0)
+    assert narrow.smem_bytes == tg.fanout_smem_bytes(
+        chunk=WINDOW, max_warps=plan.max_warps, block_rows=8)
+
+
+@pytest.mark.parametrize("row_bytes,pointers,path", [
+    (65536, (256, 512), "bulk"),  # a 64 KB page row
+    (8192, (0, 256), "bulk"),  # a llama3-8b bf16 token row
+    (4096, (16, 256), "bulk"),  # the narrowest bulk row, 16-byte bases
+    (2048, (256, 256), "unit"),  # 16-byte aligned, too narrow to pay
+    (6, (256, 512), "unit"),  # D = 3 bf16
+    (132, (256, 512), "unit"),  # D = 33 f32
+    (65536, (260, 512), "unit"),  # a view 4 bytes off
+    (65536, (272, 512), "bulk"),  # a view 16 bytes off a 128-byte line
+])
+def test_launch_config_chooses_the_path_by_row_bytes_and_alignment(
+        row_bytes, pointers, path):
+    unit = tg.gather_unit(row_bytes, *pointers)
+    kw = dict(n_out=700, window=256, max_warps=256, block_rows=8,
+              row_bytes=row_bytes, unit=unit)
+    cfg = _config(**kw)
+    assert cfg.path == path
+    if path == "bulk":
+        assert cfg.unit == 16 and cfg.row_units == row_bytes
+        assert cfg.tile % 16 == 0 and cfg.stage_bytes % 128 == 0
+    else:
+        assert cfg.unit == unit and cfg.row_units * unit == row_bytes
+        assert cfg.depth == cfg.stage_bytes == 0
+    assert _config(path="unit", **kw).path == "unit"  # always possible
+    if unit == 16:
+        assert _config(path="bulk", **kw).path == "bulk"
+    else:
+        with pytest.raises(ValueError, match="bulk path"):
+            _config(path="bulk", **kw)
+
+
+def _paged_stream(batch, pages, shared):
+    """chip_smoke.paged_stream: `batch` requests of `pages` pages, the first
+    `shared` common to all."""
+    rows, nxt = [], shared
+    for _ in range(batch):
+        rows.append(np.concatenate([np.arange(shared),
+                                    np.arange(nxt, nxt + pages - shared)]))
+        nxt += pages - shared
+    return np.concatenate(rows).astype(np.int32)
+
+
+# Shapes (a), (b), (c) of chip_smoke.py's gather phase at full size: name ->
+# (index stream, table rows, block_rows, row bytes, rows read by design).
+FULL_SHAPES = {
+    "a_paged_pool": (_paged_stream(16, 65, 0), 1040, 1, 65536, 1040),
+    "b_shared_prefix": (_paged_stream(16, 65, 48), 1040, 1, 65536, 464),
+    "c_token_table": (
+        ((np.random.default_rng(12).zipf(1.1, 8192) - 1) % 128256).astype(
+            np.int32), 128256, 8, 8192, None),
+}
+
+
+def _fanout(plan, n_out, n_rows, cfg):
+    """A numpy model of the kernel's fan-out tables: {(window, chunk,
+    group): [(source row or -1, output positions), ...]}, the group's keys
+    in first-occurrence order. As in `csrc/coalesced_gather.cu`: a window
+    is taken in chunks of `cfg.chunk` elements; a key is ``warp *
+    block_rows + offset``; an element out of range is a key of its own; a
+    key's bytes are one write per output plus one read if its row lies in
+    the table, and it belongs to the group of G in which its share of the
+    chunk's bytes starts."""
+    tags = plan.tags.numpy().astype(np.int64)
+    warps = plan.elem_warp.numpy()[:, 0].astype(np.int64)
+    offsets = plan.elem_offset.numpy()[:, 0].astype(np.int64)
+    br, win = plan.block_rows, plan.window
+    groups = {}
+    for w in range(cfg.windows):
+        n_w = min(win, n_out - w * win)
+        starts = range(0, n_w, cfg.chunk)
+        for c, e0 in enumerate(starts):
+            n = min(cfg.chunk, n_w - e0)
+            ew, eo = warps[w, e0:e0 + n], offsets[w, e0:e0 + n]
+            valid = (ew >= 0) & (ew < plan.max_warps) & (eo >= 0) & (eo < br)
+            key = np.where(valid, ew * br + eo, -1)
+            row = np.where(valid, tags[w, np.clip(ew, 0, plan.max_warps - 1)]
+                           * br + eo, -1)
+            row = np.where((row >= 0) & (row < n_rows), row, -1)
+            e = np.arange(n)
+            efirst = e.copy()
+            _, first, inverse = np.unique(key[valid], return_index=True,
+                                          return_inverse=True)
+            efirst[valid] = e[valid][first][inverse]
+            cnt = np.bincount(efirst, minlength=n)
+            is_first = efirst == e
+            weight = np.where(is_first, cnt + (is_first & (row >= 0)), 0)
+            total = n + int((is_first & (row >= 0)).sum())
+            last = w == cfg.windows - 1 and c == len(starts) - 1
+            G = cfg.groups_last if last else cfg.groups_full
+            grp = np.where(is_first,
+                           (np.cumsum(weight) - weight) * G // total, -1)
+            for g in range(G):
+                groups[w, c, g] = [
+                    (int(row[f]), np.flatnonzero(efirst == f) + w * win + e0)
+                    for f in np.flatnonzero(grp == g)]
+    return groups
+
+
+def _window_slots(groups, w):
+    """The (row, outputs) slots of window `w`, over its chunks and groups."""
+    return [s for (gw, _, _), slots in sorted(
+        groups.items(), key=lambda kv: kv[0]) if gw == w for s in slots]
+
+
+@pytest.mark.parametrize("shape", sorted(FULL_SHAPES))
+def test_items_cover_every_distinct_row_and_column_once(shape):
+    """At shapes (a)-(c): every output is written once a column tile, each
+    distinct row of a window is read once a tile, by one item, the tiles
+    cover the row once, and the work items fill the card's SMs."""
+    idx, n_rows, br, row_bytes, by_design = FULL_SHAPES[shape]
+    sched = tc.build_block_schedule(idx, window=256, block_rows=br,
+                                    device="cpu")
+    plan = tg.build_gather_plan(sched)
+    cfg = _config(n_out=len(idx), window=256, max_warps=plan.max_warps,
+                  block_rows=br, row_bytes=row_bytes, unit=16)
+    assert cfg.path == "bulk" and N_SMS <= cfg.items
+    assert cfg.grid == min(cfg.items, 2 * N_SMS)
+    cols = [(t * cfg.tile, min((t + 1) * cfg.tile, row_bytes))
+            for t in range(cfg.n_tiles)]
+    assert cols[0][0] == 0 and cols[-1][1] == row_bytes
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(cols, cols[1:]))
+    assert cfg.chunk == 256  # one fan-out a window
+    groups = _fanout(plan, len(idx), n_rows, cfg)
+    assert cfg.items == len(groups) * cfg.n_tiles
+    written = np.concatenate([out for slots in groups.values()
+                              for _, out in slots])
+    np.testing.assert_array_equal(np.sort(written), np.arange(len(idx)))
+    reads = 0
+    for w in range(cfg.windows):
+        slots = _window_slots(groups, w)
+        rows = [row for row, _ in slots]
+        assert len(rows) == len(set(rows)) == len(np.unique(
+            idx[w * 256:(w + 1) * 256]))
+        reads += len(rows)
+        for row, out in slots:
+            assert (idx[out] == row).all()
+    assert reads == (by_design or reads)
+    assert reads == sum(len(np.unique(idx[i:i + 256]))
+                        for i in range(0, len(idx), 256))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("block_rows", [1, 8])
+def test_fanout_model_matches_repro_schedule(block_rows, packed):
+    """The fan-out of each window (its distinct keys and the outputs each
+    feeds) is what `repro`'s schedule says: the keys are its (warp, offset)
+    pairs, at block_rows 1 as many as its request warps."""
+    idx = _stream(45)
+    ja, tb = _schedules(idx, block_rows)
+    plan = tg.build_gather_plan(tb, packed=packed)
+    cfg = _config(n_out=len(idx), window=WINDOW, max_warps=plan.max_warps,
+                  block_rows=block_rows, row_bytes=512, unit=16)
+    groups = _fanout(plan, len(idx), 45, cfg)
+    tags = np.asarray(ja.tags)
+    ew, eo = np.asarray(ja.elem_warp), np.asarray(ja.elem_offset)
+    valid = np.asarray(ja.elem_valid)
+    for w in range(cfg.windows):
+        slots = _window_slots(groups, w)
+        want = {}
+        for e in np.flatnonzero(valid[w]):
+            row = int(tags[w, ew[w, e]]) * block_rows + int(eo[w, e])
+            want.setdefault(row, []).append(w * WINDOW + e)
+        assert {row: list(out) for row, out in slots} == want
+        if block_rows == 1:
+            assert len(slots) == int(np.asarray(ja.n_warps)[w])
+
+
+@pytest.mark.parametrize("n_last", [1, 16, 100, 256])
+def test_partial_last_window_gets_work_in_proportion(n_last):
+    """The last window's groups follow its share of a full window's
+    elements (the paged shape's 5th window holds 16)."""
+    cfg = _config(n_out=4 * 256 + n_last, window=256, max_warps=256,
+                  block_rows=1, row_bytes=65536, unit=16)
+    assert cfg.groups_last == max(1, -(-cfg.groups_full * n_last // 256))
+    assert abs(cfg.groups_last / cfg.groups_full - n_last / 256) <= (
+        1 / cfg.groups_full)
+    assert cfg.items == (4 * cfg.groups_full + cfg.groups_last) * cfg.n_tiles
+
+
+def _paged_smem(depth, stage_bytes=16384):
+    """Shared memory of the paged shape's block: the fan-out tables of a
+    256-element window and 256 keys beside a ring of `depth` stages."""
+    return tg.fanout_smem_bytes(chunk=256, max_warps=256, block_rows=1,
+                                depth=depth, stage_bytes=stage_bytes)
+
+
+@pytest.mark.parametrize("slack", [0, 100])
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_ring_shared_memory_grows_with_depth_under_the_limit(depth, slack):
+    """Where shared memory is short the ring loses stages, down to 2, before
+    its tiles narrow; each stage costs its bytes and its barrier."""
+    limit = _paged_smem(depth) + slack
+    cfg = _config(n_out=1040, window=256, max_warps=256, block_rows=1,
+                  row_bytes=65536, unit=16, smem_limit=limit)
+    assert (cfg.depth, cfg.tile, cfg.chunk) == (depth, tg.MAX_TILE_BYTES, 256)
+    assert cfg.smem_bytes == _paged_smem(depth) <= limit
+    if depth > 2:
+        assert _paged_smem(depth) - _paged_smem(depth - 1) in (16384,
+                                                              16384 + 16)
+    if depth < 4:
+        assert _paged_smem(depth + 1) > limit  # a stage more does not fit
+
+
+def test_ring_tiles_narrow_below_the_smallest_ring():
+    limit = _paged_smem(2) - 1
+    cfg = _config(n_out=1040, window=256, max_warps=256, block_rows=1,
+                  row_bytes=65536, unit=16, smem_limit=limit)
+    assert cfg.tile < tg.MAX_TILE_BYTES and cfg.smem_bytes <= limit
+    assert cfg.depth >= tg.MIN_GATHER_DEPTH and cfg.chunk == 256
+    assert cfg.n_tiles * cfg.tile >= 65536 > (cfg.n_tiles - 1) * cfg.tile
+
+
+@pytest.mark.parametrize("row_bytes,depth", [
+    (65536, 4),  # 16 KB stages: 3 loading while one is stored
+    (8192, 7),  # 8 KB rows of llama3-8b's bf16 token table
+    (512, 8),  # the deepest ring
+])
+def test_ring_depth_keeps_the_bytes_in_flight(row_bytes, depth):
+    kw = dict(n_out=1040, window=256, max_warps=256, block_rows=1,
+              row_bytes=row_bytes, unit=16)
+    cfg = _config(path="bulk", **kw)
+    assert cfg.depth == depth
+    assert (cfg.depth - 1) * cfg.stage_bytes <= max(
+        tg.IN_FLIGHT_BYTES, tg.MIN_GATHER_DEPTH * cfg.stage_bytes)
+    assert _config(path="unit", **kw).depth == 0
+
+
+# Long windows: (window, max_warps, block_rows, row bytes, path, chunked).
+LONG_WINDOWS = [
+    (2500, 2500, 4, 512, "unit", False),  # 10,000 keys, one fan-out
+    (4500, 4500, 1, 65536, "bulk", True),  # too long for one fan-out
+    (5000, 5000, 8, 16384, "bulk", True),  # 40,000 keys: a 2-stage ring
+    (12000, 12000, 1, 16384, "bulk", True),
+    (20000, 20000, 1, 48, "unit", True),
+]
+
+
+@pytest.mark.parametrize("window,max_warps,block_rows,row_bytes,path,chunked",
+                         LONG_WINDOWS)
+def test_long_windows_are_taken_in_element_chunks(
+        window, max_warps, block_rows, row_bytes, path, chunked):
+    """A window whose per-element tables do not fit beside the ring is
+    taken in the longest chunks that do; only its keys and tags must fit
+    whole."""
+    n_out = 2 * window + 700
+    cfg = _config(n_out=n_out, window=window, max_warps=max_warps,
+                  block_rows=block_rows, row_bytes=row_bytes, unit=16)
+    assert cfg.path == path and cfg.smem_bytes <= SMEM_LIMIT
+    assert (cfg.chunk < window) == chunked
+    assert cfg.chunk >= min(window, tg.MIN_CHUNK)
+    assert cfg.chunks == -(-window // cfg.chunk)
+    ring = dict(max_warps=max_warps, block_rows=block_rows, depth=cfg.depth,
+                stage_bytes=cfg.stage_bytes)
+    assert cfg.smem_bytes == tg.fanout_smem_bytes(chunk=cfg.chunk, **ring)
+    if chunked:  # the longest chunk that fits
+        assert tg.fanout_smem_bytes(chunk=cfg.chunk + 1, **ring) > SMEM_LIMIT
+    n_chunks = 2 * cfg.chunks + -(-700 // cfg.chunk)
+    assert cfg.items == ((n_chunks - 1) * cfg.groups_full
+                         + cfg.groups_last) * cfg.n_tiles
+    if (window, block_rows) == (5000, 8):
+        assert cfg.depth == tg.MIN_GATHER_DEPTH
+
+
+@pytest.mark.parametrize("chunk", [256, 400, 999])
+@pytest.mark.parametrize("block_rows", [1, 4])
+def test_items_cover_every_output_once_in_chunks(block_rows, chunk):
+    """A long window taken in chunks (a shared-memory limit that fits the
+    tables of `chunk` elements beside the ring forces them): every output
+    is written once, each distinct row is read once a chunk, and each
+    chunk's slots are its distinct (warp, offset) keys."""
+    idx = np.random.default_rng(23).integers(0, 3000, 2 * 1000 + 301)
+    sched = tc.build_block_schedule(idx.astype(np.int32), window=1000,
+                                    block_rows=block_rows, device="cpu")
+    plan = tg.build_gather_plan(sched)
+    smem_limit = tg.fanout_smem_bytes(
+        chunk=chunk, max_warps=plan.max_warps, block_rows=block_rows,
+        depth=8, stage_bytes=512)
+    cfg = _config(n_out=len(idx), window=1000, max_warps=plan.max_warps,
+                  block_rows=block_rows, row_bytes=512, unit=16,
+                  smem_limit=smem_limit, path="bulk")
+    assert (cfg.depth, cfg.chunk, cfg.chunks) == (8, chunk, -(-1000 // chunk))
+    assert cfg.smem_bytes == smem_limit
+    groups = _fanout(plan, len(idx), 3000, cfg)
+    assert cfg.items == len(groups) * cfg.n_tiles
+    written = np.concatenate([out for slots in groups.values()
+                              for _, out in slots])
+    np.testing.assert_array_equal(np.sort(written), np.arange(len(idx)))
+    for w in range(cfg.windows):
+        for e0 in range(0, min(1000, len(idx) - w * 1000), cfg.chunk):
+            lo = w * 1000 + e0
+            hi = min(lo + cfg.chunk, (w + 1) * 1000, len(idx))
+            slots = [s for (gw, c, _), sl in groups.items()
+                     if gw == w and c == e0 // cfg.chunk for s in sl]
+            assert sorted(row for row, _ in slots) == sorted(
+                np.unique(idx[lo:hi]).tolist())
+            for row, out in slots:
+                assert (idx[out] == row).all()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(window=65536, max_warps=65536), "fan-out tables"),  # too many keys
+    (dict(window=2500, max_warps=2500, block_rows=64), "fan-out tables"),
+    (dict(unit=4, path="bulk"), "bulk path"),  # a misaligned view
+    (dict(window=60000, max_warps=29100, path="unit"), "fan-out tables"),
+    (dict(window=60000, max_warps=28000), "a ring of 2 stages of 16 bytes"),
+    (dict(path="fast"), "path"),
+    (dict(window=0), "window"),
+    (dict(smem_limit=_paged_smem(0) + 200),
+     "a ring of 2 stages of 16 bytes"),  # the tables fit, no ring beside
+])
+def test_launch_config_raises_where_it_does_not_fit(kw, match):
+    args = dict(n_out=1040, window=256, max_warps=256, block_rows=1,
+                row_bytes=65536, unit=16)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        _config(**args)
+    if kw.get("max_warps") == 28000:  # the unit path needs no ring
+        assert _config(**dict(args, path="unit")).chunk >= 1

@@ -22,8 +22,10 @@ from repro_torch.core.gather_engine import clear_gather_engine_cache
 from repro_torch.core.runtime import normalize_to_sell, pad_width
 from repro_torch.core.spmv import _sell_padded
 from repro_torch.kernels import _build, ops
+from repro_torch.core.coalescer import BlockSchedule
 from repro_torch.kernels.coalesced_gather import build_gather_plan, \
-    coalesced_gather_cuda, coalesced_gather_plain
+    coalesced_gather_cuda, coalesced_gather_plain, gather_launch_config, \
+    gather_unit
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.kernels.sell_spmv import build_device_plan, launch_config, \
     sell_spmv_cuda, sell_spmv_plain
@@ -304,16 +306,177 @@ def test_serve_paged_full_width_heads_on_card(cuda):
     assert out["reports"][0]["backend_resolved"] == "cuda"
 
 
+def _config_of(table, plan, n_out, path="auto"):
+    """The launch geometry `coalesced_gather_cuda` takes for this call."""
+    row_bytes = table.shape[1] * table.element_size()
+    return gather_launch_config(
+        n_out=n_out, window=plan.window, max_warps=plan.max_warps,
+        block_rows=plan.block_rows, row_bytes=row_bytes,
+        unit=gather_unit(row_bytes, table.data_ptr()), path=path,
+        n_sms=torch.cuda.get_device_properties(
+            table.device).multi_processor_count,
+        smem_limit=_build.max_dynamic_smem(table.device))
+
+
 def test_coalesced_gather_stages_long_windows_in_chunks(cuda):
-    """A window longer than the elements a block stages at once (1,024) is
-    copied chunk by chunk; a partial last window ends mid-chunk."""
+    """Long windows and a partial last window; 48-byte rows take the unit
+    path. 2,500 elements at block_rows 4 (up to 10,000 keys) fit one
+    fan-out a window; 12,000 at block_rows 1 are taken in element chunks."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    table = torch.randn((5000, 12), generator=gen, device=cuda)
-    idx = np.random.default_rng(9).integers(0, 5000, 2 * 2500 + 700)
-    sched, _ = cached_block_schedule(idx, window=2500, block_rows=4,
+    for window, block_rows, n_rows in ((2500, 4, 5000), (12000, 1, 40000)):
+        table = torch.randn((n_rows, 12), generator=gen, device=cuda)
+        idx = np.random.default_rng(9).integers(0, n_rows, 2 * window + 700)
+        sched, _ = cached_block_schedule(idx, window=window,
+                                         block_rows=block_rows, device=cuda)
+        plan = build_gather_plan(sched)
+        cfg = _config_of(table, plan, len(idx))
+        assert cfg.path == "unit"
+        assert (cfg.chunk < window) == (window == 12000)
+        got = coalesced_gather_cuda(table, None, window=window,
+                                    block_rows=block_rows, plan=plan,
+                                    n_out=len(idx))
+        torch.cuda.synchronize()
+        assert torch.equal(got, table[torch.as_tensor(
+            idx, device=cuda).long()])
+
+
+def _gather_both(table, idx, *, window, block_rows, paths=("bulk", "unit")):
+    """The kernel on each path against the plain version and table[idx],
+    bitwise; returns the outputs by path."""
+    sched, _ = cached_block_schedule(idx, window=window, block_rows=block_rows,
+                                     device=table.device)
+    plan = build_gather_plan(sched)
+    kw = dict(window=window, block_rows=block_rows, plan=plan, n_out=len(idx))
+    want = table[torch.as_tensor(idx, device=table.device).long()]
+    plain = coalesced_gather_plain(table, None, **kw)
+    outs = {}
+    for path in paths:
+        got = coalesced_gather_cuda(table, None, path=path, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(got), _bytes(plain)), path
+        assert torch.equal(_bytes(got), _bytes(want)), path
+        outs[path] = got
+    return outs, plan
+
+
+@pytest.mark.parametrize("case", ["a_pages", "b_shared_prefix",
+                                  "c_tokens_bf16"])
+def test_coalesced_gather_both_paths_on_the_same_data(cuda, case):
+    make, idx, br = GATHER_CASES[case]
+    table = make(torch.Generator(device=cuda).manual_seed(7), cuda)
+    _gather_both(table, idx, window=64, block_rows=br)
+
+
+@pytest.mark.parametrize("row_floats,depth", [
+    (128, 8),  # 512-byte rows: more items than blocks, 300 windows
+    (2048, 7),  # 8 KB rows
+    (16384, 4),  # 64 KB rows in 4 tiles of 16 KB
+])
+def test_coalesced_gather_ring_runs_on_across_items(cuda, row_floats, depth):
+    """Many items a block: the ring's stages and barrier phases carry over
+    from item to item, at the depth each row width gives."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n_rows = {128: 19200, 2048: 4800, 16384: 600}[row_floats]
+    table = torch.randn((n_rows, row_floats), generator=gen, device=cuda)
+    idx = np.random.default_rng(13).integers(0, n_rows, n_rows + 17)
+    _, plan = _gather_both(table, idx.astype(np.int32), window=64,
+                           block_rows=1)
+    cfg = _config_of(table, plan, len(idx), path="bulk")
+    assert cfg.depth == depth and cfg.items > cfg.grid
+
+
+def test_coalesced_gather_two_stage_ring_in_chunks(cuda):
+    """40,000 keys a window (5,000 distinct blocks of 8 rows): the key
+    table leaves room for a ring of 2 stages of 16 KB, and the window is
+    taken in element chunks; both paths."""
+    rng = np.random.default_rng(22)
+    idx = np.concatenate([rng.permutation(5000) * 8 + rng.integers(0, 8, 5000)
+                          for _ in range(3)])[:12000].astype(np.int32)
+    table = torch.randn((40000, 4096), generator=torch.Generator(
+        device=cuda).manual_seed(23), device=cuda)
+    _, plan = _gather_both(table, idx, window=5000, block_rows=8)
+    cfg = _config_of(table, plan, len(idx))
+    assert (cfg.path, cfg.depth) == ("bulk", 2) and cfg.chunk < 5000
+
+
+@pytest.mark.parametrize("block_rows", [1, 8])
+def test_coalesced_gather_row_named_by_every_element(cuda, block_rows):
+    """One row fans out to every output of every window."""
+    table = torch.randn((40, 64), generator=torch.Generator(
+        device=cuda).manual_seed(14), device=cuda)
+    _gather_both(table, np.full(1000, 37, np.int32), window=256,
+                 block_rows=block_rows)
+
+
+@pytest.mark.parametrize("path", ["bulk", "unit"])
+def test_coalesced_gather_rows_past_the_table_read_as_zeros(cuda, path):
+    """A block spanning past the last row (rows 8..15 of a 12-row table at
+    block_rows 8): those outputs are zeros, on both paths."""
+    arrays = dict(tags=[[1]], n_warps=[1], elem_warp=[[0] * 6],
+                  elem_offset=[[0, 3, 4, 7, 4, 0]])
+    sched = BlockSchedule(
+        **{k: torch.tensor(v, dtype=torch.int32, device=cuda)
+           for k, v in arrays.items()},
+        elem_valid=torch.ones((1, 6), dtype=torch.bool, device=cuda),
+        window=6, block_rows=8)
+    table = torch.randn((12, 64), generator=torch.Generator(
+        device=cuda).manual_seed(15), device=cuda)
+    plan = build_gather_plan(sched)
+    got = coalesced_gather_cuda(table, None, window=6, block_rows=8,
+                                plan=plan, path=path)
+    torch.cuda.synchronize()
+    zero = torch.zeros(64, device=cuda)
+    want = torch.stack([table[8], table[11], zero, zero, zero, table[8]])
+    assert torch.equal(_bytes(got), _bytes(want))
+    assert torch.equal(_bytes(got), _bytes(coalesced_gather_plain(
+        table, None, window=6, block_rows=8, plan=plan)))
+
+
+def test_coalesced_gather_views_choose_the_path_by_alignment(cuda):
+    """A table view 16 bytes off a 128-byte line takes the bulk path; one
+    4 bytes off must take the unit path, and asking for bulk raises."""
+    base = torch.randn(70 * 64 + 4, generator=torch.Generator(
+        device=cuda).manual_seed(16), device=cuda)
+    idx = np.random.default_rng(17).integers(0, 70, 300).astype(np.int32)
+    aligned16 = base[4:4 + 70 * 64].view(70, 64)
+    assert aligned16.data_ptr() % 128 == 16
+    _gather_both(aligned16, idx, window=64, block_rows=8)
+    shifted = base[1:1 + 70 * 64].view(70, 64)
+    assert gather_unit(256, shifted.data_ptr()) == 4
+    _gather_both(shifted, idx, window=64, block_rows=8, paths=("unit",))
+    sched, _ = cached_block_schedule(idx, window=64, block_rows=8,
+                                     device=cuda)
+    with pytest.raises(ValueError, match="bulk path"):
+        coalesced_gather_cuda(shifted, None, window=64, block_rows=8,
+                              plan=build_gather_plan(sched), path="bulk")
+
+
+def test_coalesced_gather_long_windows_on_the_bulk_path(cuda):
+    """The long-window case with 512-byte rows, both paths."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    table = torch.randn((5000, 128), generator=gen, device=cuda)
+    idx = np.random.default_rng(19).integers(0, 5000, 2 * 2500 + 700)
+    _gather_both(table, idx.astype(np.int32), window=2500, block_rows=4)
+
+
+def test_coalesced_gather_work_queue_per_stream(cuda):
+    """Launches queued on two streams, each with its own work counter that
+    every launch leaves at zero, all equal table[idx]."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    table = torch.randn((3000, 256), generator=gen, device=cuda)
+    idx = np.random.default_rng(21).integers(0, 3000, 4000).astype(np.int32)
+    sched, _ = cached_block_schedule(idx, window=256, block_rows=1,
                                      device=cuda)
     plan = build_gather_plan(sched)
-    got = coalesced_gather_cuda(table, None, window=2500, block_rows=4,
-                                plan=plan, n_out=len(idx))
+    want = table[torch.as_tensor(idx, device=cuda).long()]
+    side = torch.cuda.Stream(device=cuda)
+    outs = []
+    for stream in (torch.cuda.current_stream(cuda), side, side):
+        with torch.cuda.stream(stream):
+            for path in ("bulk", "unit"):
+                outs.append(coalesced_gather_cuda(
+                    table, None, window=256, block_rows=1, plan=plan,
+                    n_out=len(idx), path=path))
     torch.cuda.synchronize()
-    assert torch.equal(got, table[torch.as_tensor(idx, device=cuda).long()])
+    for got in outs:
+        assert torch.equal(got, want)
