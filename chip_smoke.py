@@ -12,9 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    `sell_spmm` on the full-size banded plan (1,000,000 rows) and on a
    random-family plan (131,072 rows, 16 nonzeros a row, ~256 warps a
    window: its windows are staged in groups of warps), packed and unpacked
-   metadata, float32 and bfloat16 values, k in {1, 7, 33, 64, 65, 128,
-   200} (k not a multiple of 4 or 8; k = 200 takes two 128-column grid
-   columns), each at buffer_depth 1, 2 and 4. Tolerance
+   metadata, float32 and bfloat16 values, k in {1, 7, 32, 33, 64, 65,
+   128, 200} (k not a multiple of 4 or 8; 32 and 64 the streamed and the
+   sync paths' k; k = 200 takes two 128-column grid columns), each at
+   buffer_depth 1, 2 and 4. Tolerance
    ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise: float32 sums
    of at most ~40 products per row, taken in another order. Then
    `coalesced_gather`, which must equal its plain version and
@@ -63,19 +64,54 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    --paged --batch 16 --prompt-len 1024 --decode-steps 16 --page-block 16``
    in process (32 layers, 32 heads, 8 KV heads, head_dim 128; 65 pages a
    request, 1,040 pages a layer), with every launch count set to 0 just
-   before and `coalesced_gather`'s read just after; serve itself gates the
+   before and read just after; serve itself gates the
    paged attention against dense SDPA at 1e-5 and the decode steps after
    the first at zero schedule builds. Then one decode step split on the
    host clock (draws, appends, gathers, attention, the dense parity
    reference), the gather kernel's own share in CUDA events, and the
    device's busy share and time by kernel from torch.profiler.
 
-Phase 3 reads the SELL kernels' launch counts and phase 5 the gather's.
-The line before the card line is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device.
+6. Solvers: ``serve --spmv banded --spmv-rows 1000000 --solve cg``
+   (``make_spd`` of the banded matrix) and ``--spmv powerlaw --solve
+   pagerank``, in process, a cold solve and 4 warm ones each: iterations,
+   iters/s, schedule builds (serve itself gates convergence, one build cold
+   and none warm); `sell_spmv`'s launches equal the solves' own count of
+   matvecs (CUDA graph replays counted); cg's true residual ``||b - A x|| /
+   ||b||`` in float64 from the CSR on the card, PageRank's sum of x within
+   1e-5 of 1; one more solve on each loop (``python``: launches equal
+   iterations, plus cg's initial residual) with its host time per iteration;
+   ``loop="while"`` (graph) bitwise equal to ``loop="python"`` on 131,072
+   rows; `sell_spmv` timed at the CG and the PageRank matrices' shapes
+   beside its byte bound and ``torch.mv`` on the same CSR.
+7. Streaming: ``serve --spmv banded --spmv-rows 1000000 --batch 64
+   --requests 8 --stream depth=2,microbatch=32``: every streamed batch
+   within ``1e-5 + 1e-5 * |y|`` of the synchronous one and each of its
+   32-column micro-batches of `sell_spmm_plain` on the same plan, sync and
+   streamed
+   SpMV/s, the perf model's predicted speedup, staging split into host
+   packing and the host-to-device copy, depth 1 and 2 in turns on the same
+   batches, and a torch.profiler window over two requests (copy and kernel
+   intervals, and the time they ran at once).
+8. Plan store and chaos: phase 3's serve cold with ``--schedule-cache`` (a
+   directory under ``build/``, removed at the end; the plan file's size is
+   printed), then warm with ``--assert-warm-cache`` (zero builds), cold and
+   warm plan seconds; ``--chaos 'store_read:rate=1,count=1;
+   store_write:count=1;dispatch_timeout:after=1,count=1'`` with ``--stream``
+   on a 131,072-row banded matrix, and ``--paged --chaos
+   store_read:rate=1,count=1`` on llama3-8b at full width (prompt 128, 2
+   decode steps), each with every injected fault recovered.
+
+Every served path (the serve runs of phases 3, 5, 6, 7 and 8; phase 3's
+matvec) is driven with the launch counts set to 0 just before it and read
+just after; the JSON line before the card line sums them per kernel (one
+entry per kernel; `sell_spmv`'s times are at the solver shape whose served
+solves launched it most). The launches of phase 6's extra solves and of
+phase 7's checks and timing runs are printed apart and not summed. The last line is
+``{"ok": true, "device": {...}}``. Needs one CUDA device.
 """
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -93,7 +129,7 @@ TOL = 1e-5
 MAIN_ROWS = 1_000_000
 MAIN_BATCH = 64
 RANDOM_ROWS = 131_072
-KS = (1, 7, 33, 64, 65, 128, 200)
+KS = (1, 7, 32, 33, 64, 65, 128, 200)
 DEPTHS = (1, 2, 4)
 KERNELS = {
     "sell_spmv": dict(
@@ -415,37 +451,33 @@ def gather_against_plain(device):
     return worst
 
 
-def main_path(device):
+def main_path(device, smi):
     import torch
 
     from repro_torch.core import matrices
     from repro_torch.core.engine import SpMVEngine, clear_engine_cache, \
         clear_schedule_cache, get_engine
     from repro_torch.core.formats import dense_to_csr
-    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda
-    from repro_torch.kernels.sell_spmm import sell_spmm_cuda
-    from repro_torch.kernels.sell_spmv import sell_spmv_cuda
     from repro_torch.launch import serve
 
-    _phase("3. main path: serve --spmv banded (in process) + matvec")
+    _phase(f"3. main path: serve --spmv banded (in process) + matvec "
+           f"({smi})")
     clear_engine_cache()
     clear_schedule_cache()
     argv = ["--spmv", "banded", "--spmv-rows", str(MAIN_ROWS), "--batch",
             str(MAIN_BATCH), "--requests", "8"]
     print("serve " + " ".join(argv))
-    sell_spmv_cuda.launches = 0
-    sell_spmm_cuda.launches = 0
-    coalesced_gather_cuda.launches = 0
+    _reset_launches()
     out = serve.run(serve.build_parser().parse_args(argv))
     engine = out["engine"]
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         engine.n_cols).astype(np.float32), device=device)
-    y = engine.finalize(engine.matvec(x))
-    launches = {"sell_spmv": sell_spmv_cuda.launches,
-                "sell_spmm": sell_spmm_cuda.launches}
+    y = engine.matvec(x)
+    torch.cuda.synchronize()
+    launches = _read_launches()
     print(f"kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("sell_spmv", "sell_spmm"):
+        if launches[name] < 1:
             raise AssertionError(f"the main path never launched {name}")
     if engine.backend_resolved != "cuda":
         raise AssertionError(f"serve ran backend {engine.backend_resolved}")
@@ -479,8 +511,9 @@ def main_path(device):
     print(f"served: {out['spmv_per_s']:.1f} SpMV/s, {out['gflops']:.3f} "
           f"GFLOP/s ({out['seconds']:.3f}s for 8 batches x {MAIN_BATCH})")
     # One request split on the host clock: staging the numpy batch on the
-    # card, then the fused kernel up to the finalize sync.
-    stage_s, run_s = [], []
+    # card (packing it into pinned memory, then the copy), then the fused
+    # kernel up to the finalize sync.
+    stage_s, copy_ms, run_s = [], [], []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -489,11 +522,14 @@ def main_path(device):
         t1 = time.perf_counter()
         engine.finalize(engine.dispatch(staged))
         stage_s.append(t1 - t0)
+        copy_ms.append(staged.copy_ms())
         run_s.append(time.perf_counter() - t1)
     st, rn = np.median(stage_s) * 1e3, np.median(run_s) * 1e3
-    print(f"one request (median of 5): stage {st:.3f} ms (host->device copy "
-          f"of {out['batch'].nbytes} B), dispatch+finalize {rn:.3f} ms, "
-          f"the kernel's part {rn / (st + rn) * 100:.1f}% of the request")
+    print(f"one request (median of 5): stage {st:.3f} ms (pinned packing "
+          f"and host->device copy of {out['batch'].nbytes} B; the copy "
+          f"alone {np.median(copy_ms):.3f} ms on the device), "
+          f"dispatch+finalize {rn:.3f} ms, the kernel's part "
+          f"{rn / (st + rn) * 100:.1f}% of the request")
     return out, launches
 
 
@@ -710,31 +746,27 @@ def aligned_rows_both_paths(device, idx, block_rows):
           f"{BULK_MIN_ROW_BYTES} B by default): " + "; ".join(cells))
 
 
-def paged_path(device):
+def paged_path(device, smi):
     import torch
 
     from repro_torch.core.engine import clear_engine_cache, \
         clear_schedule_cache
     from repro_torch.core.gather_engine import clear_gather_engine_cache
-    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda
-    from repro_torch.kernels.sell_spmm import sell_spmm_cuda
-    from repro_torch.kernels.sell_spmv import sell_spmv_cuda
     from repro_torch.launch import serve
 
-    _phase("5. paged path: serve --arch llama3-8b --paged (in process)")
+    _phase(f"5. paged path: serve --arch llama3-8b --paged (in process; "
+           f"{smi})")
     clear_engine_cache()
     clear_schedule_cache()
     clear_gather_engine_cache()
     torch.cuda.empty_cache()
     print("serve " + " ".join(PAGED_ARGV))
     torch.cuda.reset_peak_memory_stats(device)
-    sell_spmv_cuda.launches = 0
-    sell_spmm_cuda.launches = 0
-    coalesced_gather_cuda.launches = 0
+    _reset_launches()
     out = serve.run(serve.build_parser().parse_args(PAGED_ARGV))
-    launches = coalesced_gather_cuda.launches
-    print(f"kernel launches on the paged path: coalesced_gather {launches}")
-    if launches < 1:
+    launches = _read_launches()
+    print(f"kernel launches on the paged path: {launches}")
+    if launches["coalesced_gather"] < 1:
         raise AssertionError("the paged path never launched coalesced_gather")
     if not out["max_err"] <= 1e-5 or out["builds_warm"] != 0:
         raise AssertionError(f"paged serve: max_err {out['max_err']}, "
@@ -877,6 +909,487 @@ def paged_step_breakdown(out, device, repeats=3):
               f"{name[:60]} {t / 1e3:.3f}" for name, t in top))
 
 
+def _reset_launches():
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS
+
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def _read_launches():
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS
+
+    return {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
+
+
+def _serve(argv):
+    """`serve.run` in process with every launch count set to 0 just before;
+    returns its result and the launches it made."""
+    from repro_torch.launch import serve
+
+    print("serve " + " ".join(argv), flush=True)
+    _reset_launches()
+    out = serve.run(serve.build_parser().parse_args(argv))
+    return out, _read_launches()
+
+
+def _fresh_caches():
+    import torch
+
+    from repro_torch.core.engine import clear_engine_cache, \
+        clear_schedule_cache
+    from repro_torch.core.gather_engine import clear_gather_engine_cache
+
+    clear_engine_cache()
+    clear_schedule_cache()
+    clear_gather_engine_cache()
+    torch.cuda.empty_cache()
+
+
+def _csr_on_card(csr, device, dtype):
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr, dtype=torch.int64, device=device),
+        torch.as_tensor(csr.indices, dtype=torch.int64, device=device),
+        torch.as_tensor(csr.data, dtype=dtype, device=device),
+        size=(csr.n_rows, csr.n_cols),
+    )
+
+
+def _solve_launch_check(name, results, launches):
+    """Every matvec of the solves went through sell_spmv (graph replays
+    counted), and nothing else launched it."""
+    matvecs = sum(r.matvecs for r in results)
+    print(f"{name}: sell_spmv launches {launches['sell_spmv']}, the solves' "
+          f"own count of matvecs {matvecs} (per solve: "
+          f"{[r.matvecs for r in results]}; iterations "
+          f"{[r.iterations for r in results]})")
+    if launches["sell_spmv"] != matvecs or matvecs < 1:
+        raise AssertionError(f"{name}: {launches['sell_spmv']} sell_spmv "
+                             f"launches for {matvecs} matvecs")
+
+
+def _add(into, launches):
+    for name, n in launches.items():
+        into[name] = into.get(name, 0) + n
+
+
+def solver_path(device, smi):
+    """Phase 6: serve --solve cg and pagerank at 1,000,000 rows, their
+    launches, true residuals, the graph loop against the python loop, and
+    sell_spmv at both solvers' shapes. Returns the kernels-line row (the
+    shape whose served solves launched sell_spmv most), the worst error,
+    and the launches of the served solves and of the check and timing runs
+    apart."""
+    import torch
+
+    from repro_torch.core import matrices, solvers
+    from repro_torch.core.engine import get_engine
+    from repro_torch.kernels.sell_spmv import sell_spmv_cuda, sell_spmv_plain
+
+    _phase(f"6. solvers: serve --solve cg and pagerank at {MAIN_ROWS} rows "
+           f"(in process; {smi})")
+    _fresh_caches()
+    served, checks, cases, served_spmv = {}, {}, {}, {}
+    for solve, family in (("cg", "banded"), ("pagerank", "powerlaw")):
+        out, launches = _serve(["--spmv", family, "--spmv-rows",
+                                str(MAIN_ROWS), "--solve", solve,
+                                "--requests", "4"])
+        _add(served, launches)
+        served_spmv[solve] = launches["sell_spmv"]
+        runs = [out["cold"]] + out["warm"]
+        _solve_launch_check(f"{solve} (cold + 4 warm)", runs, launches)
+        op = out["csr"] if solve == "cg" else solvers.transition_matrix(
+            out["csr"])
+        eng = get_engine(op, device=device)
+        print(f"{solve}: cold {out['cold'].iterations} iterations in "
+              f"{out['cold_s']:.3f}s (schedule builds "
+              f"{out['cold'].schedule_builds}), warm "
+              f"{[r.iterations for r in out['warm']]} iterations, "
+              f"{out['iters_per_s']:.1f} iters/s (schedule builds "
+              f"{[r.schedule_builds for r in out['warm']]}), loop "
+              f"{out['cold'].loop}")
+        A64 = _csr_on_card(op, device, torch.float64)
+        x64 = out["warm"][-1].x.double()
+        if solve == "cg":
+            b64 = torch.as_tensor(out["b"], device=device).double()
+            true = float(torch.linalg.norm(b64 - torch.mv(A64, x64))
+                         / torch.linalg.norm(b64))
+            print(f"cg: true residual ||b - A x|| / ||b|| = {true:.3e} in "
+                  f"float64 (tol {out['tol']:g})")
+            if not true <= 2 * out["tol"]:
+                raise AssertionError(f"cg true residual {true:.3e}")
+        else:
+            total = float(x64.sum())
+            y = 0.85 * torch.mv(A64, x64)
+            y = y + (1.0 - float(y.sum())) / op.n_rows
+            fixed = float((y - x64).abs().sum())
+            print(f"pagerank: sum(x) = {total!r}, float64 L1 distance of x "
+                  f"from one more step {fixed:.3e} (tol {out['tol']:g})")
+            if not abs(total - 1.0) <= 1e-5:
+                raise AssertionError(f"pagerank x sums to {total!r}")
+        # one more solve each way, launches counted per solve, and the host
+        # time per iteration of each loop
+        run = (lambda loop: solvers.cg(eng, out["b"], tol=out["tol"],
+                                       loop=loop)) if solve == "cg" else (
+            lambda loop: solvers.pagerank(eng, tol=out["tol"], loop=loop))
+        per_iter, per_mv = {}, {}
+        for loop in ("python", "while"):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(loop)
+            dt = time.perf_counter() - t0
+            launches = _read_launches()
+            _add(checks, launches)
+            _solve_launch_check(f"{solve} loop={loop}", [res], launches)
+            if loop == "python" and res.matvecs != res.iterations + (
+                    solve == "cg"):
+                raise AssertionError(f"{solve}: {res.matvecs} matvecs for "
+                                     f"{res.iterations} iterations")
+            per_iter[loop] = dt / res.iterations * 1e3
+            per_mv[loop] = dt / res.matvecs * 1e3
+        print(f"{solve}: host time per iteration (per matvec), loop=python "
+              f"{per_iter['python']:.4f} ms ({per_mv['python']:.4f}), "
+              f"loop=while (CUDA graph blocks of {solvers.WHILE_BLOCKS}) "
+              f"{per_iter['while']:.4f} ms ({per_mv['while']:.4f}); "
+              f"{res.matvecs} matvecs for {res.iterations} iterations")
+        cases[solve] = (eng, op, out["b"])
+        del out, A64, x64
+    # while (graph) against python, bit for bit, on 131,072 rows
+    for solve, family in (("cg", "banded"), ("pagerank", "powerlaw")):
+        csr = (matrices.banded(RANDOM_ROWS, 24, 0.8) if family == "banded"
+               else matrices.powerlaw(RANDOM_ROWS, 12))(seed=5)
+        b = np.random.default_rng(6).standard_normal(RANDOM_ROWS).astype(
+            np.float32)
+        xs = {}
+        for loop in ("python", "while", "while"):
+            _reset_launches()
+            res = (solvers.cg(matrices.make_spd(csr), b, loop=loop,
+                              device=device) if solve == "cg" else
+                   solvers.pagerank(csr, tol=1e-7, loop=loop, device=device))
+            launches = _read_launches()
+            _add(checks, launches)
+            _solve_launch_check(f"{solve} {RANDOM_ROWS} rows loop={loop}",
+                                [res], launches)
+            if loop in xs and not torch.equal(xs[loop][0], res.x):
+                raise AssertionError(f"{solve}: warm graph replay differs")
+            xs.setdefault(loop, (res.x, res.iterations))
+        same = torch.equal(xs["python"][0], xs["while"][0]) and (
+            xs["python"][1] == xs["while"][1])
+        print(f"{solve} at {RANDOM_ROWS} rows: loop=while (graph) and "
+              f"loop=python bitwise equal: {same} ({xs['python'][1]} "
+              f"iterations)")
+        if not same:
+            raise AssertionError(f"{solve}: graph and python loops differ")
+    # sell_spmv at the two solvers' shapes; the kernels line takes the one
+    # whose served solves launched it most
+    rows = {}
+    for solve, (eng, op, b) in cases.items():
+        plan, values = eng.device_plan, eng.plan_values(torch.float32)
+        x = torch.as_tensor(b, device=device) if solve == "cg" else \
+            torch.full((op.n_rows,), 1.0 / op.n_rows, device=device)
+        A = _csr_on_card(op, device, torch.float32)
+        want = sell_spmv_plain(None, values, x, plan=plan)
+        err = _max_err(sell_spmv_cuda(None, values, x, plan=plan), want)
+        nbytes = op.nnz * 8 + plan.tags.numel() * 4 + 2 * op.n_rows * 4
+        flops = 2.0 * op.nnz
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        row = dict(
+            ms=_time_ms(lambda: sell_spmv_cuda(None, values, x, plan=plan)),
+            plain_ms=_time_ms(lambda: sell_spmv_plain(None, values, x,
+                                                      plan=plan), iters=5),
+            library_ms=_time_ms(lambda: torch.mv(A, x)),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+        widths = np.asarray(eng.sell.slice_widths)
+        print(f"sell_spmv at the {solve} shape ({op.n_rows} rows, nnz "
+              f"{op.nnz}, plan {tuple(values.shape)}, slice widths max "
+              f"{int(widths.max())} / mean {widths.mean():.1f}, max_warps "
+              f"{plan.max_warps}): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, torch.mv on sparse CSR "
+              f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.2f}"
+              f"x the kernel's time), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes} B, {flops:.3g} flop) -> "
+              f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound; max "
+              f"abs err against plain {err:.3e}")
+        rows[solve] = (row, err)
+        del A, want
+    top = max(served_spmv, key=served_spmv.get)
+    print(f"kernels line: sell_spmv at the {top} shape, which the served "
+          f"solves launched it at most (launches by solve {served_spmv})")
+    err = max(e for _, e in rows.values())
+    _fresh_caches()
+    return rows[top][0], err, served, checks
+
+
+def _at_once(copies, kernels):
+    """Time (in the intervals' unit) during which a copy and a kernel ran
+    at once; copies never overlap each other (one copy stream), nor do
+    kernels (one compute stream)."""
+    return sum(max(0.0, min(a1, b1) - max(a0, b0))
+               for a0, a1 in copies for b0, b1 in kernels)
+
+
+def _overlap(prof):
+    """From a torch.profiler trace: host-to-device copy intervals and SELL
+    kernel intervals (microseconds), and every device event's name."""
+    import torch
+
+    copies, kernels, names = [], [], []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        names.append(evt.name)
+        span = (evt.time_range.start, evt.time_range.end)
+        if "HtoD" in evt.name:
+            copies.append(span)
+        elif "sell_kernel" in evt.name:
+            kernels.append(span)
+    return copies, kernels, names
+
+
+def stream_path(device, smi):
+    """Phase 7: serve --stream at 1,000,000 rows, parity with sync and with
+    the plain version, SpMV/s streamed and sync, a depth=1 control, the
+    staging split, and a profiler window over two requests. Returns the
+    launches of the served run and of the check and timing runs apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.runtime import StreamingExecutor, \
+        microbatch_slices
+    from repro_torch.kernels.sell_spmm import sell_spmm_plain
+
+    _phase(f"7. streaming: serve --spmv banded --stream at {MAIN_ROWS} rows "
+           f"(in process; {smi})")
+    _fresh_caches()
+    out, launches = _serve(["--spmv", "banded", "--spmv-rows", str(MAIN_ROWS),
+                            "--batch", str(MAIN_BATCH), "--requests", "8",
+                            "--stream", "depth=2,microbatch=32"])
+    engine = out["engine"]
+    if launches["sell_spmm"] < 1:
+        raise AssertionError("the stream path never launched sell_spmm")
+    _reset_launches()
+    errs = [_max_err(out["y_stream"], out["y"])]
+    for B, got in zip(out["batches"], out["stream_outs"]):
+        errs.append(_max_err(got, engine.matmat(B)))
+    print(f"stream parity against sync (every batch, 1e-5 + 1e-5*|y|): max "
+          f"abs err {max(errs):.3e}")
+    # each streamed micro-batch (k = 32) against the kernel's plain version
+    # on the same plan
+    plan, values = engine.device_plan, engine.plan_values(torch.float32)
+    errs = []
+    for B, got in zip(out["batches"], out["stream_outs"]):
+        Bd = torch.as_tensor(B, device=device)
+        for sl in microbatch_slices(MAIN_BATCH, 32):
+            want = sell_spmm_plain(None, values, Bd[:, sl].contiguous(),
+                                   plan=plan, k_tile=engine.k_tile)
+            errs.append(_max_err(got[:, sl], want))
+        del Bd, want
+    print(f"stream against sell_spmm_plain ({len(errs)} micro-batches of 32 "
+          f"columns, 1e-5 + 1e-5*|y|): max abs err {max(errs):.3e}")
+    del values
+    st = out["staging"]
+    n_mb = st["microbatches"]
+    print(f"served sync {out['spmv_per_s']:.1f} SpMV/s, streamed "
+          f"{out['stream_spmv_per_s']:.1f} SpMV/s (depth 2, microbatch 32); "
+          f"the model predicted x{out['stream_pred']['speedup']:.3f} "
+          f"({out['stream_pred']['bottleneck']}-bound); staging {n_mb} "
+          f"micro-batches of {engine.n_cols * 32 * 4} B: host packing "
+          f"{st['pack_s'] * 1e3 / n_mb:.3f} ms and host-to-device copy "
+          f"{st['copy_ms'] / n_mb:.3f} ms (device) a micro-batch")
+
+    def streamed(depth, batches):
+        streamer = StreamingExecutor(engine, microbatch=32, depth=depth)
+        streamer.matmat(batches[0][:, :32])  # the ring, outside the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for B in batches:
+            streamer.submit(B)
+        outs = streamer.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not outs.ok:
+            raise AssertionError(f"stream failures: {outs.failures}")
+        return len(batches) * MAIN_BATCH / dt, streamer.staging
+
+    rates = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        rates[depth].append(streamed(depth, out["batches"])[0])
+    print(f"depth control, same batches, in turns 1,2,2,1: depth 1 "
+          f"{np.mean(rates[1]):.1f} SpMV/s ({rates[1][0]:.1f}, "
+          f"{rates[1][1]:.1f}), depth 2 {np.mean(rates[2]):.1f} SpMV/s "
+          f"({rates[2][0]:.1f}, {rates[2][1]:.1f})")
+    streamer = StreamingExecutor(engine, microbatch=32, depth=2)
+    streamer.matmat(out["batches"][0][:, :32])
+    torch.cuda.synchronize()
+    # The same window in CUDA events: each micro-batch's copy on the copy
+    # stream (its own timed events), and its kernel between the events
+    # recorded around `dispatch` on the compute stream (it starts no
+    # earlier than its copy's end).
+    marks = []
+    real_dispatch = engine.dispatch
+
+    def timed_dispatch(staged):
+        before = torch.cuda.Event(enable_timing=True)
+        before.record()
+        pending = real_dispatch(staged)
+        after = torch.cuda.Event(enable_timing=True)
+        after.record()
+        marks.append((staged, before, after))
+        return pending
+
+    engine.dispatch = timed_dispatch
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record()
+            t0 = time.perf_counter()
+            for B in out["batches"][:2]:
+                streamer.submit(B)
+            streamer.drain()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del engine.dispatch
+    checks = _read_launches()
+    ev_copies = [(ref.elapsed_time(st.copy_start), ref.elapsed_time(st.copied))
+                 for st, _, _ in marks]
+    ev_kernels = [(max(ref.elapsed_time(b), ref.elapsed_time(st.copied)),
+                   ref.elapsed_time(a)) for st, b, a in marks]
+    print(f"window over two requests ({wall_ms:.3f} ms wall), CUDA events: "
+          f"{len(ev_copies)} host-to-device copies busy "
+          f"{sum(b - a for a, b in ev_copies):.3f} ms, {len(ev_kernels)} "
+          f"sell_spmm launches busy {sum(b - a for a, b in ev_kernels):.3f} "
+          f"ms, copy and kernel at once "
+          f"{_at_once(ev_copies, ev_kernels):.3f} ms; intervals (ms from "
+          f"the window's start) copies "
+          + " ".join(f"[{a:.2f},{b:.2f}]" for a, b in ev_copies)
+          + " kernels "
+          + " ".join(f"[{a:.2f},{b:.2f}]" for a, b in ev_kernels))
+    copies, kernels, names = _overlap(prof)
+    if not copies or not kernels:
+        print(f"  torch.profiler, same window: not measured ({len(names)} "
+              f"device events, {len(copies)} copies, {len(kernels)} SELL "
+              f"kernels; names {sorted(set(names))[:4]})")
+    else:
+        print(f"  torch.profiler, same window: {len(copies)} host-to-device "
+              f"copies busy {sum(b - a for a, b in copies) / 1e3:.3f} ms, "
+              f"{len(kernels)} sell_spmm launches busy "
+              f"{sum(b - a for a, b in kernels) / 1e3:.3f} ms, copy and "
+              f"kernel at once {_at_once(copies, kernels) / 1e3:.3f} ms")
+    del out
+    _fresh_caches()
+    return launches, checks
+
+
+def store_and_chaos(device, smi):
+    """Phase 8: phase 3's serve cold into a plan store under build/ and warm
+    from it (zero builds), then the chaos drills of the stream path and the
+    paged path; the store is removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.engine import SpMVEngine, _sell_content_digest
+    from repro_torch.core.runtime import normalize_to_sell
+
+    _phase(f"8. plan store and chaos ({smi})")
+    store = ROOT / "build" / f"plan-store-{os.getpid()}"
+    totals = {}
+
+    def serve_counted(argv):
+        out, launches = _serve(argv)
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        return out
+
+    try:
+        argv = ["--spmv", "banded", "--spmv-rows", str(MAIN_ROWS), "--batch",
+                str(MAIN_BATCH), "--requests", "8", "--schedule-cache",
+                str(store / "main")]
+        _fresh_caches()
+        cold = serve_counted(argv)
+        files = sorted((store / "main").glob("*.npz"))
+        if cold["cache_stats"]["built"] != 1 or len(files) != 1:
+            raise AssertionError(f"cold store run: {cold['cache_stats']}, "
+                                 f"{len(files)} files")
+        y_cold, cold_s, csr = cold["y"], cold["plan_s"], cold["csr"]
+        del cold
+        _fresh_caches()
+        warm = serve_counted(argv + ["--assert-warm-cache"])
+        err = _max_err(warm["y"], y_cold)
+        print(f"plan store: {files[0].name}, {files[0].stat().st_size} B on "
+              f"disk; plan seconds cold {cold_s:.3f} (build and save), warm "
+              f"{warm['plan_s']:.3f} (load, {warm['cache_stats']['built']} "
+              f"builds, {warm['cache_stats']['disk_hits']} disk hit); warm "
+              f"batch against cold: max abs err {err:.3e}")
+        del warm, y_cold
+        # serve's "planned in" holds the plan report too: the schedule
+        # alone, built, built and saved, and loaded (matrix and digests
+        # ready beforehand)
+        sell = normalize_to_sell(csr)
+        _sell_content_digest(sell)
+        sched_s = {}
+        for label, cache_dir in (("built", None),
+                                 ("built and saved", store / "solo"),
+                                 ("loaded", store / "solo")):
+            _fresh_caches()
+            eng = SpMVEngine(sell, device=device, cache_dir=cache_dir and
+                             str(cache_dir))
+            eng._ensure_plan()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.schedule
+            torch.cuda.synchronize()
+            sched_s[label] = time.perf_counter() - t0
+        del eng, sell, csr
+        print("schedule alone, seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sched_s.items()))
+        # the stream path under chaos, on a plan file made fault-free first
+        chaos = ("store_read:rate=1,count=1;store_write:count=1;"
+                 "dispatch_timeout:after=1,count=1")
+        argv = ["--spmv", "banded", "--spmv-rows", str(RANDOM_ROWS),
+                "--batch", str(MAIN_BATCH), "--requests", "4", "--stream",
+                "depth=2,microbatch=32", "--schedule-cache",
+                str(store / "stream")]
+        _fresh_caches()
+        serve_counted(argv)
+        _fresh_caches()
+        out = serve_counted(argv + ["--chaos", chaos])
+        _chaos_check("stream", out)
+        _max_err(out["y_stream"], out["y"])
+        del out
+        _fresh_caches()
+        out = serve_counted(PAGED_ARGV[:5] + [
+            "--prompt-len", "128", "--decode-steps", "2", "--page-block",
+            "16", "--schedule-cache", str(store / "paged"), "--chaos",
+            "store_read:rate=1,count=1"])
+        _chaos_check("paged", out)
+        if out["store_drill"] != "quarantined + re-persisted":
+            raise AssertionError(f"paged drill: {out['store_drill']}")
+        del out
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+        _fresh_caches()
+    return totals
+
+
+def _chaos_check(name, out):
+    rep = out["chaos"]
+    print(f"chaos drill ({name}): injected {rep['injected']}, recovered "
+          f"{rep['recovered']}, unrecovered {rep['unrecovered']}; by site "
+          + ", ".join(f"{site} {v['injected']}/{v['recovered']}"
+                      for site, v in sorted(rep["sites"].items())))
+    if rep["injected"] < 1 or rep["unrecovered"]:
+        raise AssertionError(f"chaos drill ({name}): {rep}")
+
+
 def main():
     import torch
 
@@ -893,10 +1406,27 @@ def main():
     torch.cuda.set_device(device)
     smi = environment_and_build()
     worst = kernels_against_plain(device)
-    out, launches = main_path(device)
+    # Every served path runs with the counts set to 0 just before and read
+    # just after; the kernels line adds up the served paths. The check and
+    # timing runs of phases 6 and 7 are counted apart.
+    served, checks = {}, {}
+    out, served["3 serve --spmv + matvec"] = main_path(device, smi)
     rows = times(out, smi)
     del out
-    launches["coalesced_gather"] = paged_path(device)
+    served["5 serve --paged"] = paged_path(device, smi)
+    rows["sell_spmv"], err, served["6 serve --solve"], checks[
+        "6 extra solves"] = solver_path(device, smi)
+    worst["sell_spmv"] = max(worst["sell_spmv"], err)
+    served["7 serve --stream"], checks["7 checks and timing"] = stream_path(
+        device, smi)
+    served["8 serve --schedule-cache/--chaos"] = store_and_chaos(device, smi)
+    launches = {}
+    for path, counts in served.items():
+        print(f"launches, {path}: {counts}")
+        _add(launches, counts)
+    for path, counts in checks.items():
+        print(f"launches, {path} (not in the kernels line): {counts}")
+    print(f"kernel launches over the served paths: {launches}")
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=launches[name], max_abs_err=worst[name], **rows[name])

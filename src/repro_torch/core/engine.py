@@ -4,7 +4,10 @@
   * `cached_block_schedule` — content-addressed schedule cache. The key is
     the SHA-256 digest of the int32 index-stream bytes plus (window,
     block_rows, max_warps) and the device the schedule lives on; repeat
-    plans return the *same* object.
+    plans return the *same* object. With a cache directory (``cache_dir=``
+    or ``$REPRO_SCHEDULE_CACHE``) a memory miss falls through to the
+    persistent store (`core.schedule_store`, the JAX package's file format)
+    before planning, and fresh plans are written back.
   * `SpMVEngine` — owns one matrix (CSR is converted to SELL up front,
     validated), one schedule, one `DevicePlan`, and `matvec(x)` /
     batched `matmat(X)` that reuse them across many right-hand sides.
@@ -24,13 +27,18 @@
     parameters and device.
 
 Cache sizes are bounded (LRU). `SpMVEngine` also has the ``stage`` /
-``dispatch`` / ``finalize`` trio of a streaming executor:
-``finalize(dispatch(stage(X)))`` equals ``matmat(X)``.
+``dispatch`` / ``finalize`` trio of a streaming executor
+(`runtime.Executor`): ``finalize(dispatch(stage(X)))`` equals ``matmat(X)``
+bit for bit. On the card each hook acts on one micro-batch: ``stage`` copies
+from pinned host memory on the engine's copy stream, ``dispatch`` makes the
+compute stream wait for that copy only, and ``finalize`` waits for that
+micro-batch's own completion event.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple, Union
@@ -38,6 +46,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import faults, schedule_store
 from .coalescer import BlockSchedule, META_BYTES_PACKED, \
     META_BYTES_UNPACKED, build_block_schedule, coalesce_stats, \
     packable_schedule, plan_device, schedule_gather_reference, \
@@ -45,8 +54,8 @@ from .coalescer import BlockSchedule, META_BYTES_PACKED, \
 from .formats import CSRMatrix, SELLMatrix
 from .perfmodel import DEFAULT_HW, HWConfig, matmat_spmv_perf, spmv_perf, \
     streaming_spmv_perf
-from .runtime import normalize_to_sell, pad_width, resolve_device, \
-    stage_rhs
+from .runtime import Pending, Staged, normalize_to_sell, pad_width, \
+    resolve_device, stage_async
 
 BACKENDS = ("reference", "cuda", "auto")
 DEFAULT_WINDOW = 256
@@ -229,10 +238,26 @@ _schedule_cache = _LRUCache(_SCHEDULE_CACHE_MAX)
 _engine_cache = _LRUCache(_ENGINE_CACHE_MAX)
 _engine_lock = threading.RLock()
 # Serializes schedule builds so concurrent planners of one stream get one
-# object (the identity guarantee).
+# object (the identity guarantee); the memory-hit write-through takes it too.
 _build_lock = threading.RLock()
-# `built` counts actual `build_block_schedule` invocations.
-_plan_stats = {"built": 0}
+# Plan-construction counters: `built` counts actual `build_block_schedule`
+# invocations, the disk_* counters observe the persistent store, `rebuilds`
+# counts plans rebuilt after their file failed validation (quarantined as
+# `*.bad`) and `save_errors` writes that failed after the store's retries.
+_plan_stats = {
+    "built": 0,
+    "disk_hits": 0,
+    "disk_rejects": 0,
+    "disk_saves": 0,
+    "rebuilds": 0,
+    "save_errors": 0,
+}
+_plan_stats_lock = threading.Lock()
+
+
+def _bump(counter: str, by: int = 1) -> None:
+    with _plan_stats_lock:
+        _plan_stats[counter] += by
 
 
 def stream_digest(indices) -> str:
@@ -253,12 +278,21 @@ def cached_block_schedule(
     block_rows: int,
     max_warps: Optional[int] = None,
     device=None,
+    cache_dir: Optional[str] = None,
+    matrix_digest: Optional[str] = None,
 ) -> Tuple[BlockSchedule, bool]:
     """Build (or fetch) the warp-trimmed coalescer schedule for an index
     stream on `device` (default: a tensor's own device, else the card; see
     `coalescer.plan_device`). Returns ``(schedule, was_cached)``; repeat
     calls with a byte-identical stream and the same plan parameters return
-    the identical schedule object."""
+    the identical schedule object.
+
+    With a cache directory (``cache_dir=`` or ``$REPRO_SCHEDULE_CACHE``) a
+    memory miss looks for the plan's file first (validated on load: stream
+    digest always, `matrix_digest` too when both sides carry one); a file
+    that fails validation is quarantined and the plan rebuilt. A fresh plan
+    is written back (best effort), and a memory hit writes through when its
+    file is missing. Disk hits count as ``was_cached=True``."""
     dev = plan_device(indices, device)
     stream = np.asarray(
         indices.cpu().numpy() if torch.is_tensor(indices) else indices,
@@ -266,37 +300,119 @@ def cached_block_schedule(
     )
     digest = stream_digest(stream)
     key = (digest, window, block_rows, max_warps, str(dev))
+    store_kw = dict(window=window, block_rows=block_rows,
+                    max_warps=max_warps, matrix_digest=matrix_digest)
     sched = _schedule_cache.get(key)
     if sched is not None:
+        _write_through_if_missing(sched, digest, cache_dir=cache_dir,
+                                  **store_kw)
         return sched, True
     with _build_lock:
         sched = _schedule_cache.get(key, count=False)
         if sched is not None:
+            _write_through_if_missing(sched, digest, cache_dir=cache_dir,
+                                      **store_kw)
             return sched, True
+        cache_dir = schedule_store.resolve_cache_dir(cache_dir)
+        path = None
+        rebuilding = False
+        if cache_dir:
+            path = schedule_store.schedule_path(cache_dir, digest, **store_kw)
+            if os.path.exists(path):
+                try:
+                    sched = schedule_store.load_schedule(
+                        path,
+                        expect_stream_digest=digest,
+                        expect_window=window,
+                        expect_block_rows=block_rows,
+                        expect_matrix_digest=matrix_digest,
+                        device=dev,
+                    )
+                    _bump("disk_hits")
+                    _schedule_cache.put(key, sched)
+                    return sched, True
+                except schedule_store.ScheduleCacheMismatch:
+                    # Self-healing: move the broken file aside so the
+                    # rebuild below persists a fresh one.
+                    _bump("disk_rejects")
+                    schedule_store.quarantine(path)
+                    rebuilding = True
         sched = trim_schedule_warps(build_block_schedule(
             stream, window=window, block_rows=block_rows,
             max_warps=max_warps, device=dev,
         ))
-        _plan_stats["built"] += 1
+        _bump("built")
+        if rebuilding:
+            _bump("rebuilds")
+            faults.note_recovered("store_read")
         _schedule_cache.put(key, sched)
+        if path is not None:
+            _save_best_effort(path, sched, stream_digest=digest,
+                              matrix_digest=matrix_digest)
         return sched, False
 
 
+def _save_best_effort(path, sched, *, stream_digest, matrix_digest) -> None:
+    """Persist a plan, degrading to memory-only if the disk stays broken
+    (`save_schedule` already retries transient errors)."""
+    try:
+        schedule_store.save_schedule(
+            path, sched, stream_digest=stream_digest,
+            matrix_digest=matrix_digest,
+        )
+        _bump("disk_saves")
+    except OSError:
+        _bump("save_errors")
+
+
+def _write_through_if_missing(
+    sched: BlockSchedule,
+    digest: str,
+    *,
+    window: int,
+    block_rows: int,
+    max_warps: Optional[int],
+    cache_dir: Optional[str],
+    matrix_digest: Optional[str],
+) -> None:
+    """Persist an in-memory plan whose file does not exist yet, so a plan
+    built before a cache directory was configured still reaches the disk."""
+    cache_dir = schedule_store.resolve_cache_dir(cache_dir)
+    if cache_dir is None:
+        return
+    path = schedule_store.schedule_path(
+        cache_dir, digest, window=window, block_rows=block_rows,
+        max_warps=max_warps, matrix_digest=matrix_digest,
+    )
+    with _build_lock:  # one file and one disk_saves bump per plan
+        if not os.path.exists(path):
+            _save_best_effort(path, sched, stream_digest=digest,
+                              matrix_digest=matrix_digest)
+
+
 def schedule_cache_stats() -> Dict[str, int]:
+    """Plan-cache counters plus the store's IO-health counters
+    (``quarantined`` / ``retries`` from `schedule_store.store_io_stats`)."""
+    with _plan_stats_lock:
+        snapshot = dict(_plan_stats)
     return {
         "size": len(_schedule_cache),
         "hits": _schedule_cache.hits,
         "misses": _schedule_cache.misses,
-        **_plan_stats,
+        **snapshot,
+        **schedule_store.store_io_stats(),
     }
 
 
 def clear_schedule_cache() -> None:
-    """Empty the schedule cache and zero its counters."""
+    """Empty the in-memory schedule cache and zero all its counters (the
+    store's IO-health counters too; files on disk are untouched)."""
     with _build_lock:
         _schedule_cache.clear()
-        for k in _plan_stats:
-            _plan_stats[k] = 0
+        with _plan_stats_lock:
+            for k in _plan_stats:
+                _plan_stats[k] = 0
+        schedule_store.clear_store_io_stats()
 
 
 def clear_engine_cache() -> None:
@@ -355,7 +471,9 @@ class SpMVEngine:
     stores the SELL values as ``"bf16"``/``"f32"`` (``None``/"native":
     the right-hand side's dtype); products accumulate in the promoted dtype.
     ``device`` (default ``"cuda"``) is where the plan and the execution
-    live; ``"cpu"`` asks for the CPU.
+    live; ``"cpu"`` asks for the CPU. ``cache_dir`` (default:
+    ``$REPRO_SCHEDULE_CACHE``) enables the persistent schedule store (see
+    `cached_block_schedule`).
     """
 
     def __init__(
@@ -375,6 +493,7 @@ class SpMVEngine:
         value_dtype: Optional[str] = None,
         plan_width_multiple: Optional[int] = None,
         device=None,
+        cache_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         sell = normalize_to_sell(
@@ -405,6 +524,7 @@ class SpMVEngine:
             matmat_mode, self.backend_resolved
         )
         self.block_rows = int(block_rows)
+        self.cache_dir = schedule_store.resolve_cache_dir(cache_dir)
         self.window = resolve_window(
             window,
             backend_resolved=self.backend_resolved,
@@ -426,6 +546,7 @@ class SpMVEngine:
         self._matvec = None
         self._matmat = None
         self._matmat_vmapped = None
+        self._copy_stream = None  # the card's host-to-device copy stream
 
     # -- planning ----------------------------------------------------------
 
@@ -449,7 +570,8 @@ class SpMVEngine:
     @property
     def schedule(self) -> BlockSchedule:
         """The coalescer plan on the engine's device (content-addressed
-        cache; built on first use)."""
+        cache; built on first use, loaded from the persistent store when one
+        is configured)."""
         with self._plan_lock:
             if self._schedule is None:
                 _, _, stream, _, _ = self._ensure_plan()
@@ -458,8 +580,34 @@ class SpMVEngine:
                     window=self.window,
                     block_rows=self.block_rows,
                     device=self.device,
+                    cache_dir=self.cache_dir,
+                    matrix_digest=_sell_content_digest(self.sell),
                 )
             return self._schedule
+
+    def persist_schedule(self, cache_dir: Optional[str] = None) -> Optional[str]:
+        """Write the already-built schedule to the persistent store (no-op if
+        nothing is planned yet, no directory is configured, or the file
+        exists). Returns the file path, or None. Covers the adopt-a-directory-
+        later path (`get_engine(..., cache_dir=...)` hitting an engine that
+        planned without one)."""
+        with self._plan_lock:
+            cache_dir = schedule_store.resolve_cache_dir(
+                cache_dir if cache_dir is not None else self.cache_dir
+            )
+            if cache_dir is None or self._schedule is None:
+                return None
+            _, _, stream, _, _ = self._ensure_plan()
+            digest = stream_digest(stream)
+            matrix_digest = _sell_content_digest(self.sell)
+            path = schedule_store.schedule_path(
+                cache_dir, digest, window=self.window,
+                block_rows=self.block_rows, matrix_digest=matrix_digest,
+            )
+            if not os.path.exists(path):
+                _save_best_effort(path, self._schedule, stream_digest=digest,
+                                  matrix_digest=matrix_digest)
+            return path
 
     @property
     def device_plan(self):
@@ -578,63 +726,111 @@ class SpMVEngine:
     def n_cols(self) -> int:
         return self.sell.n_cols
 
-    def _check_rhs(self, X: torch.Tensor, ndim: int, name: str) -> None:
-        if X.dim() != ndim or X.shape[0] != self.sell.n_cols:
+    def _check_rhs(self, X, ndim: int, name: str) -> None:
+        shape = tuple(np.shape(X))
+        if len(shape) != ndim or shape[0] != self.sell.n_cols:
             want = f"({self.sell.n_cols},)" if ndim == 1 \
                 else f"({self.sell.n_cols}, k)"
-            raise ValueError(
-                f"{name} expects x of shape {want}, got {tuple(X.shape)}"
-            )
+            raise ValueError(f"{name} expects x of shape {want}, got {shape}")
+
+    def _place(self, X, ndim: int, name: str) -> torch.Tensor:
+        """A right-hand side on this engine's device, ready for the current
+        stream: placed by `stage_async` (on the card through pinned memory
+        and the copy stream), with the current stream waiting for its copy.
+        No host sync."""
+        self._check_rhs(X, ndim, name)
+        stream = self.copy_stream() if self.device.type == "cuda" else None
+        return self._on_compute_stream(stage_async(X, self.device, stream))
 
     def matvec(self, x) -> torch.Tensor:
         """y = A @ x through the cached coalesced plan. x: (n_cols,), staged
-        on the engine's device."""
-        x = stage_rhs(x, self.device)
-        self._check_rhs(x, 1, "matvec")
+        on the engine's device; returns without waiting for the result."""
+        x = self._place(x, 1, "matvec")
         mv, _ = self._ensure_compiled()
         return mv(x)
+
+    def device_matvec(self):
+        """The matvec callable itself (not its result), for a tensor already
+        on the engine's device: it stages nothing and synchronises nothing,
+        so the solvers can capture it in a CUDA graph (`core.solvers`)."""
+        mv, _ = self._ensure_compiled()
+        return mv
 
     def matmat(self, X) -> torch.Tensor:
         """Y = A @ X for X: (n_cols, k) — one schedule shared by all k. On
         the cuda backend this runs the fused kernel (`kernels.sell_spmm`):
-        the plan and the SELL values stream once per `k_tile` columns."""
-        X = stage_rhs(X, self.device)
+        the plan and the SELL values stream once per `k_tile` columns. This
+        is ``dispatch(stage(X)).Y``: it returns without waiting for Y."""
         self._check_rhs(X, 2, "matmat")
-        _, mm = self._ensure_compiled()
-        return mm(X)
+        return self.dispatch(self.stage(X)).Y
 
     def matmat_vmapped(self, X) -> torch.Tensor:
         """The per-column baseline: `matvec` over each RHS column (on the
         reference backend the direct 2-D form, bit-identical per column)."""
-        X = stage_rhs(X, self.device)
-        self._check_rhs(X, 2, "matmat")
+        X = self._place(X, 2, "matmat")
         self._ensure_compiled()
         return self._matmat_vmapped(X)
 
     def __call__(self, x) -> torch.Tensor:
         return self.matvec(x) if np.ndim(x) == 1 else self.matmat(x)
 
-    # -- streaming pipeline hooks ------------------------------------------
-    # matmat(X) == finalize(dispatch(stage(X))); stage moves data, dispatch
-    # launches compute, finalize is the only host sync.
+    # -- streaming pipeline hooks (runtime.Executor) ------------------------
+    # matmat(X) == finalize(dispatch(stage(X))) bit for bit; stage moves
+    # data, dispatch launches compute, finalize is the only host sync, and
+    # each acts on one micro-batch.
 
-    def stage(self, X) -> torch.Tensor:
-        """Place a RHS micro-batch on this engine's device."""
-        X = stage_rhs(X, self.device)
-        self._check_rhs(X, 2, "stage")
+    def copy_stream(self) -> "torch.cuda.Stream":
+        """The stream `stage` copies right-hand sides on (the card only)."""
+        with self._plan_lock:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            return self._copy_stream
+
+    def stage(self, X) -> Staged:
+        """Start placing a RHS micro-batch (n_cols, k) on this engine's
+        device. On the card a host batch goes through pinned memory (a
+        pinned CPU tensor is used as it is) and a non-blocking copy on the
+        copy stream, which records the batch's `copied` event; on the CPU
+        the batch is placed at once."""
+        if X.ndim != 2 or X.shape[0] != self.sell.n_cols:
+            raise ValueError(
+                f"stage expects X of shape ({self.sell.n_cols}, k), got "
+                f"{tuple(X.shape)}"
+            )
+        stream = self.copy_stream() if self.device.type == "cuda" else None
+        return stage_async(X, self.device, stream)
+
+    def dispatch(self, staged: Staged) -> Pending:
+        """Launch the batched matmat on a staged micro-batch: the compute
+        (current) stream waits for that batch's copy only, and the batch's
+        completion event is recorded behind the kernel. No host sync."""
+        _, mm = self._ensure_compiled()
+        X = self._on_compute_stream(staged)
+        Y = mm(X)
+        if not X.is_cuda:
+            return Pending(Y)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return Pending(Y, done, staged)
+
+    def _on_compute_stream(self, staged: Staged) -> torch.Tensor:
+        """The staged batch, with the current (compute) stream waiting for
+        that batch's copy only."""
+        X = staged.X
+        if X.is_cuda and staged.copied is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.copied)
+            # X was allocated on the copy stream: keep the caching allocator
+            # from handing its memory out before the kernel has read it.
+            X.record_stream(stream)
         return X
 
-    def dispatch(self, staged: torch.Tensor) -> torch.Tensor:
-        """Launch the batched matmat on a staged micro-batch (asynchronous
-        on a CUDA device)."""
-        _, mm = self._ensure_compiled()
-        return mm(staged)
-
-    def finalize(self, pending: torch.Tensor) -> torch.Tensor:
-        """Wait until a dispatched micro-batch's result is materialized."""
-        if pending.is_cuda:
-            torch.cuda.current_stream(pending.device).synchronize()
-        return pending
+    def finalize(self, pending: Pending) -> torch.Tensor:
+        """Wait for this micro-batch's completion event (and nothing queued
+        after it); return its result."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        return pending.Y
 
     # -- introspection -----------------------------------------------------
 
@@ -650,15 +846,16 @@ class SpMVEngine:
         stream: Optional[Dict[str, int]] = None,
         k: Optional[int] = None,
     ) -> Dict[str, object]:
-        """The plan, inspectable: stream/coalescer stats + perf-model
-        predictions (the same keys and numbers as the JAX package, without
-        its persistent-store health counters). ``stream=`` adds the streamed
+        """The plan, inspectable: stream/coalescer stats, the store's health
+        counters and perf-model predictions (the same keys and numbers as
+        the JAX package, plus ``device``). ``stream=`` adds the streamed
         throughput prediction, ``k=`` the matmat amortization prediction."""
         sched = self.schedule
         _, _, plan_stream, W, W_plan = self._ensure_plan()
         wide, rate = coalesce_stats(
             plan_stream, window=self.window, block_rows=self.block_rows
         )
+        health = schedule_cache_stats()
         report: Dict[str, object] = {
             "n_rows": self.sell.n_rows,
             "n_cols": self.sell.n_cols,
@@ -679,6 +876,12 @@ class SpMVEngine:
             "schedule_cached": self.plan_cached,
             "wide_accesses": wide,
             "coalesce_rate": rate,
+            # The store's health: quarantined files, retried IO, plans
+            # rebuilt after quarantine, failed saves (process-wide).
+            "cache_health": {
+                key: health[key]
+                for key in ("quarantined", "retries", "rebuilds", "save_errors")
+            },
             "perf": {
                 system: dataclasses.asdict(self.perf(system, hw))
                 for system in ("base", "pack0", "pack256")
@@ -777,12 +980,16 @@ def get_engine(
     buffer_depth: int = DEFAULT_BUFFER_DEPTH,
     value_dtype: Optional[str] = None,
     device=None,
+    cache_dir: Optional[str] = None,
 ) -> SpMVEngine:
     """Engine cache: same matrix content + resolved plan parameters + device
     -> same engine. The key holds the *resolved* backend, window and matmat
     mode, as in the JAX package; cuda-only knobs (`cols_per_chunk`,
     `k_tile` when fused, `packed`, `buffer_depth`) key only cuda engines.
-    Thread-safe: concurrent callers with one key get one engine."""
+    `cache_dir` is not part of the key (it changes where a plan is stored,
+    never what it is): a cached engine adopts a directory asked for and
+    writes its plan through. Thread-safe: concurrent callers with one key
+    get one engine."""
     dev = resolve_device(device)
     matrix = normalize_to_sell(
         matrix, slice_height=slice_height, width_multiple=width_multiple,
@@ -815,6 +1022,7 @@ def get_engine(
         if resolved == "cuda" else None,
         str(dev),
     )
+    adopted = None
     with _engine_lock:
         eng = _engine_cache.get(key)
         if eng is None:
@@ -830,6 +1038,14 @@ def get_engine(
                 buffer_depth=buffer_depth,
                 value_dtype=value_dtype,
                 device=dev,
+                cache_dir=cache_dir,
             )
             _engine_cache.put(key, eng)
+        elif cache_dir is not None:
+            eng.cache_dir = schedule_store.resolve_cache_dir(cache_dir)
+            adopted = eng
+    if adopted is not None:
+        # the npz write runs outside the global lock (the engine's own lock
+        # guards it)
+        adopted.persist_schedule()
     return eng

@@ -8,8 +8,8 @@ cache, hoists the kernel-ready `DevicePlan`, and gathers any table of the
 right shape through it.
 
   * Planning goes through `core.engine.cached_block_schedule`, so the
-    in-memory cache and its ``built`` counter are shared with the SpMV
-    engine. The persistent schedule store (``cache_dir``) is not ported yet.
+    in-memory cache, its ``built`` counter and the persistent schedule store
+    (``cache_dir``, `core.schedule_store`) are shared with the SpMV engine.
   * On the cuda backend the schedule lowers once per engine to a
     `DevicePlan` in the gather geometry (`kernels.coalesced_gather.
     build_gather_plan`); every gather launches the kernel from it.
@@ -32,6 +32,7 @@ a CPU one). ``"reference"`` is an alias of ``"coalesced"``.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Dict, Optional, Tuple, Union
 
@@ -47,11 +48,13 @@ from .coalescer import (
     schedule_gather_reference,
     schedule_meta_bytes,
 )
+from . import schedule_store
 from .engine import (
     DEFAULT_WINDOW,
     PACKED_CHOICES,
     _ENGINE_CACHE_MAX,
     _LRUCache,
+    _save_best_effort,
     cached_block_schedule,
     resolve_packed,
     stream_digest,
@@ -99,7 +102,8 @@ class GatherEngine:
     wide block, so coalescing dedups repeats). ``packed`` selects the
     `DevicePlan` metadata encoding of the cuda backend (``"auto"`` packs
     whenever lossless). ``device`` (default the card) holds the schedule,
-    the plan and the tables gathered.
+    the plan and the tables gathered. ``cache_dir`` enables the shared
+    persistent schedule store.
     """
 
     def __init__(
@@ -113,6 +117,7 @@ class GatherEngine:
         packed: Union[bool, str] = "auto",
         max_warps: Optional[int] = None,
         device=None,
+        cache_dir: Optional[str] = None,
     ):
         table_shape = tuple(int(s) for s in table_shape)
         if len(table_shape) != 2:
@@ -145,6 +150,7 @@ class GatherEngine:
             )
         self.packed = packed  # as requested; resolved against the schedule
         self.max_warps = max_warps
+        self.cache_dir = schedule_store.resolve_cache_dir(cache_dir)
 
         # Planning is lazy and locked, mirroring SpMVEngine: report queries
         # pay for the schedule, never for a gather.
@@ -172,7 +178,8 @@ class GatherEngine:
     @property
     def schedule(self) -> BlockSchedule:
         """The coalescer plan on the engine's device (content-addressed
-        cache; built on first use)."""
+        cache; built on first use, loaded from the persistent store when one
+        is configured)."""
         with self._plan_lock:
             if self._schedule is None:
                 self._schedule, self.plan_cached = cached_block_schedule(
@@ -181,8 +188,32 @@ class GatherEngine:
                     block_rows=self.block_rows,
                     max_warps=self.max_warps,
                     device=self.device,
+                    cache_dir=self.cache_dir,
                 )
             return self._schedule
+
+    def persist_schedule(
+        self, cache_dir: Optional[str] = None
+    ) -> Optional[str]:
+        """Write the already-built schedule to the persistent store (no-op if
+        nothing is planned yet, no directory is configured, or the file
+        exists). Returns the file path, or None."""
+        with self._plan_lock:
+            cache_dir = schedule_store.resolve_cache_dir(
+                cache_dir if cache_dir is not None else self.cache_dir
+            )
+            if cache_dir is None or self._schedule is None:
+                return None
+            path = schedule_store.schedule_path(
+                cache_dir, self.digest, window=self.window,
+                block_rows=self.block_rows, max_warps=self.max_warps,
+            )
+            if not os.path.exists(path):
+                _save_best_effort(
+                    path, self._schedule, stream_digest=self.digest,
+                    matrix_digest=None,
+                )
+            return path
 
     @property
     def device_plan(self):
@@ -337,6 +368,7 @@ def get_gather_engine(
     packed: Union[bool, str] = "auto",
     max_warps: Optional[int] = None,
     device=None,
+    cache_dir: Optional[str] = None,
 ) -> GatherEngine:
     """Engine cache: same stream content + table/plan geometry + device ->
     same engine (and so the same schedule and plan). This is what makes
@@ -344,7 +376,9 @@ def get_gather_engine(
     page-table digest, and as long as the table does not change every
     decode step lands on one engine. The key holds the *resolved* backend
     and window (every spelling of one plan shares one engine); `packed` is
-    keyed as requested, like `get_engine`."""
+    keyed as requested, like `get_engine`; `cache_dir` changes where plans
+    are stored, never what they are (a cached engine adopts it and writes
+    its plan through)."""
     idx = _flat_stream(indices)
     dev = resolve_device(device)
     resolved = resolve_gather_backend(backend, dev)
@@ -358,6 +392,7 @@ def get_gather_engine(
         packed if resolved == "cuda" else None,
         str(dev),
     )
+    adopted = None
     with _gather_engine_lock:
         eng = _gather_engine_cache.get(key)
         if eng is None:
@@ -370,8 +405,14 @@ def get_gather_engine(
                 packed=packed,
                 max_warps=max_warps,
                 device=dev,
+                cache_dir=cache_dir,
             )
             _gather_engine_cache.put(key, eng)
+        elif cache_dir is not None:
+            eng.cache_dir = schedule_store.resolve_cache_dir(cache_dir)
+            adopted = eng
+    if adopted is not None:
+        adopted.persist_schedule()
     return eng
 
 

@@ -168,6 +168,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
 
 
+def count_launch(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel in ``wrapper.launches``. While
+    the current stream is being captured into a CUDA graph nothing runs: the
+    launch goes to ``wrapper.captured`` instead, and each replay of the graph
+    adds the launches it captured to ``launches``
+    (`kernels.ops.CapturedLaunches`)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def max_dynamic_smem(device: torch.device) -> int:
     """Shared memory a block may opt into on `device` (bytes)."""
     index = device.index if device.index is not None else \

@@ -489,8 +489,9 @@ def coalesced_gather_cuda(
             ctypes.c_void_p(stream.cuda_stream),
         )
     _build.check(rc, "coalesced_gather")
-    coalesced_gather_cuda.launches += 1
+    _build.count_launch(coalesced_gather_cuda)
     return out
 
 
 coalesced_gather_cuda.launches = 0
+coalesced_gather_cuda.captured = 0

@@ -50,6 +50,8 @@ namespace sell {
 namespace {
 
 constexpr int kMaxDepth = 8;
+// Devices a process may launch on (the attribute cache of `launch_as`).
+constexpr int kMaxDevices = 64;
 
 struct Geometry {
   int n_slices, n_chunks, C, H, max_warps, block_rows, n_cols, k;
@@ -415,19 +417,26 @@ cudaError_t launch_as(const void* values, const void* X, const void* tags,
     return cudaErrorInvalidValue;
   }
   auto kernel = sell_kernel<VT, PACKED, NC, XUNIT>;
+  int device, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
   if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
+    // Raised once per instance, device and size rather than at every
+    // launch, so that a launch captured into a CUDA graph (the solvers')
+    // makes no attribute call.
+    static int attribute_bytes[kMaxDevices] = {};
+    if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (smem_bytes > attribute_bytes[device]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return err;
+      attribute_bytes[device] = smem_bytes;
+    }
   }
   // Persistent blocks: as many as fit on the card at once, each walking
   // slice groups (a smaller grid where there are fewer).
   const int threads = g.slices_per_block * g.H * g.quads;
-  int device, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem_bytes);

@@ -76,7 +76,8 @@ def sell_spmm_cuda(
 ) -> torch.Tensor:
     """Returns Y = A @ X, Y: (n_slices * H, k) float32, computed by the CUDA
     kernel on the current stream. Semantics: ref.sell_spmm_ref. Each call
-    that launches adds one to ``sell_spmm_cuda.launches``."""
+    that launches adds one to ``sell_spmm_cuda.launches`` (to ``.captured``
+    while a CUDA graph is captured: `_build.count_launch`)."""
     n_slices, W, H = values.shape
     _check_args(X, W, cols_per_chunk, k_tile)
     _validate_buffer_depth(buffer_depth)
@@ -113,11 +114,12 @@ def sell_spmm_cuda(
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(rc, "sell_spmm")
-    sell_spmm_cuda.launches += 1
+    _build.count_launch(sell_spmm_cuda)
     return Y
 
 
 sell_spmm_cuda.launches = 0
+sell_spmm_cuda.captured = 0
 
 
 def sell_spmm_plain(

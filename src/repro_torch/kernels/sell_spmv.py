@@ -511,7 +511,8 @@ def sell_spmv_cuda(
 ) -> torch.Tensor:
     """Returns y = A @ x, y: (n_slices * H,) float32, computed by the CUDA
     kernel on the current stream. Semantics: ref.sell_spmv_ref. Each call
-    that launches adds one to ``sell_spmv_cuda.launches``."""
+    that launches adds one to ``sell_spmv_cuda.launches`` (to ``.captured``
+    while a CUDA graph is captured: `_build.count_launch`)."""
     n_slices, W, H = values.shape
     _check_width(W, cols_per_chunk, "sell_spmv")
     _validate_buffer_depth(buffer_depth)
@@ -543,11 +544,12 @@ def sell_spmv_cuda(
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(rc, "sell_spmv")
-    sell_spmv_cuda.launches += 1
+    _build.count_launch(sell_spmv_cuda)
     return y
 
 
 sell_spmv_cuda.launches = 0
+sell_spmv_cuda.captured = 0
 
 
 def sell_spmv_plain(

@@ -1,12 +1,24 @@
-"""Serving launcher (port of the ``--spmv`` and ``--paged`` modes of
-`repro.launch.serve`).
+"""Serving launcher (port of the ``--spmv``, ``--solve`` and ``--paged``
+modes of `repro.launch.serve`).
 
 `python -m repro_torch.launch.serve --spmv banded --spmv-rows 1000000
 --batch 64 --requests 8` stands up an `SpMVEngine` for one synthetic matrix
 on the card and serves batches of right-hand sides through the cached
 coalescer plan (`matmat`, the fused `sell_spmm` kernel), reporting the plan,
 the backend, the perf model's matmat prediction, steady-state SpMV/s and
-GFLOP/s, and the schedule cache counters.
+GFLOP/s, and the schedule cache counters. ``--stream depth=D,microbatch=B``
+serves the same batches again through `core.runtime.StreamingExecutor`
+(pinned staging ring, copy stream) and reports its parity with the
+synchronous result, its SpMV/s and the perf model's overlap prediction.
+``--schedule-cache DIR`` keeps plans in the persistent store
+(`core.schedule_store`, the JAX package's file format);
+``--assert-warm-cache`` exits non-zero unless the process planned nothing.
+
+``--spmv FAMILY --solve cg|pagerank|jacobi|power`` serves an iterative
+solver (`core.solvers`) over the family's matrix (cg/jacobi make it SPD with
+`make_spd`): a cold solve, then ``--requests`` warm ones, with iterations,
+iters/s and schedule builds; it exits non-zero unless the solve converged,
+the cold solve built one schedule and the warm ones none.
 
 `python -m repro_torch.launch.serve --arch llama3-8b --paged --batch 16
 --prompt-len 1024 --decode-steps 16 --page-block 16` serves end-to-end paged
@@ -16,7 +28,13 @@ K/V/q from --seed, no weights): per-layer paged KV caches
 `core.gather_engine` plan cache (the `coalesced_gather` kernel on the card),
 with per-layer gather plan reports, tokens/s, a paged-vs-dense parity gate
 (1e-5) and a zero-steady-state-plan-builds gate. Generation with the model
-stack (``--arch`` without ``--paged``) is not ported yet.
+stack (``--arch`` without ``--paged``) is not ported yet. With ``--chaos``
+and ``--schedule-cache`` one layer's gather plan makes a round trip through
+the store.
+
+``--chaos SPEC`` runs the selected mode under deterministic fault injection
+(`core.faults`) and exits non-zero unless a fault was injected, every
+injected fault recovered, and parity with the fault-free result held.
 
 ``--device cpu`` runs either mode on the CPU (the reference executors under
 ``--backend auto``).
@@ -28,7 +46,9 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
+from repro_torch.core import faults
 from repro_torch.core import matrices as _matgen
 
 _SPMV_MATRICES = {
@@ -37,12 +57,100 @@ _SPMV_MATRICES = {
     "random": lambda n: _matgen.random_uniform(n, 16),
 }
 
+# The JAX package's tolerance for each solver served by --solve.
+SOLVE_TOLS = {"cg": 1e-6, "jacobi": 1e-6, "pagerank": 1e-7, "power": 1e-5}
+
+
+def _sync(device) -> None:
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_solve(args) -> Dict[str, object]:
+    """Iterative-solver serving: one plan-once engine, a device-resident
+    loop per solve (`core.solvers`, CUDA-graph blocks on the card). Prints
+    the cold solve (with the schedules it built — exactly one) and the warm
+    solves' iterations/s over --requests repeats; returns the operator, the
+    right-hand side and every solve's result."""
+    from repro_torch.core import solvers
+    from repro_torch.core.matrices import make_spd
+
+    gen = _SPMV_MATRICES[args.spmv](args.spmv_rows)
+    csr = gen(seed=args.seed)
+    if args.solve in ("cg", "jacobi"):
+        csr = make_spd(csr)  # CG/Jacobi need SPD / diag-dominant input
+    tol = SOLVE_TOLS[args.solve]
+    kw = dict(
+        backend=args.backend, window=args.window, block_rows=args.block_rows,
+        cache_dir=args.schedule_cache, device=args.device,
+    )
+    solver = {
+        "cg": lambda m, b: solvers.cg(m, b, tol=tol, **kw),
+        "jacobi": lambda m, b: solvers.jacobi(m, b, tol=tol, **kw),
+        "pagerank": lambda m, b: solvers.pagerank(m, tol=tol, **kw),
+        "power": lambda m, b: solvers.power_iteration(m, tol=tol, **kw),
+    }[args.solve]
+    b = np.random.default_rng(args.seed + 1).standard_normal(
+        csr.n_rows
+    ).astype(np.float32)
+
+    t0 = time.time()
+    cold = solver(csr, b)
+    cold_s = time.time() - t0
+    print(
+        f"solve-serve: {args.solve} on {args.spmv} {csr.n_rows}x"
+        f"{csr.n_cols} nnz={csr.data.size} backend={args.backend} "
+        f"device={args.device} tol={tol:g}"
+    )
+    print(
+        f"  cold: {cold.iterations} iters in {cold_s:.3f}s "
+        f"(schedule_builds={cold.schedule_builds}, loop={cold.loop})"
+    )
+    t0 = time.time()
+    iters = 0
+    warm = []
+    for _ in range(max(1, args.requests)):
+        warm.append(solver(csr, b))
+        iters += warm[-1].iterations
+    warm_s = time.time() - t0
+    res = warm[-1]
+    extra = (
+        f" eigenvalue={res.eigenvalue:.6g}" if res.eigenvalue is not None
+        else ""
+    )
+    print(
+        f"  warm: {len(warm)} solves, "
+        f"{iters / warm_s:.1f} iters/s "
+        f"(schedule_builds={res.schedule_builds}, residual="
+        f"{res.residual:.3e}, converged={res.converged}{extra})"
+    )
+    if not res.converged:
+        raise SystemExit(f"solve-serve: {args.solve} did not converge")
+    if cold.schedule_builds != 1 or res.schedule_builds != 0:
+        raise SystemExit(
+            f"solve-serve: plan-reuse violation (cold built "
+            f"{cold.schedule_builds}, warm built {res.schedule_builds})"
+        )
+    return {
+        "csr": csr,
+        "b": b,
+        "tol": tol,
+        "cold": cold,
+        "cold_s": cold_s,
+        "warm": warm,
+        "warm_s": warm_s,
+        "iters_per_s": iters / warm_s,
+    }
+
 
 def serve_spmv(args) -> Dict[str, object]:
-    """Batched SpMV serving: one engine, many right-hand-side batches.
-    Prints the report and returns the engine, the first request batch and
-    its served result, and the measured rates."""
+    """Batched SpMV serving: one engine, many right-hand-side batches, then
+    (``--stream``) the same batches through the streaming pipeline. Prints
+    the report and returns the engine, the request batches, the first
+    batch's served result, and the measured rates."""
     from repro_torch.core.engine import get_engine, schedule_cache_stats
+    from repro_torch.core.runtime import StreamingExecutor, parse_stream_spec
 
     gen = _SPMV_MATRICES[args.spmv](args.spmv_rows)
     csr = gen(np.random.default_rng(args.seed))
@@ -50,6 +158,7 @@ def serve_spmv(args) -> Dict[str, object]:
     engine = get_engine(
         csr, backend=args.backend, window=args.window,
         block_rows=args.block_rows, device=args.device,
+        cache_dir=args.schedule_cache,
     )
     # Forces the (lazy) schedule build; k= folds the matmat prediction in.
     rep = engine.plan_report(k=args.batch if args.batch > 1 else None)
@@ -81,18 +190,75 @@ def serve_spmv(args) -> Dict[str, object]:
             f"x{pred['amortization']:.1f}, crossover k="
             f"{pred['crossover_k']})"
         )
+    stream_cfg = parse_stream_spec(args.stream) if args.stream else None
+    streamer = stream_pred = None
+    if stream_cfg is not None:
+        streamer = StreamingExecutor(
+            engine,
+            microbatch=stream_cfg["microbatch"],
+            depth=stream_cfg["depth"],
+            # Under chaos, budget micro-batch retries so injected dispatch
+            # timeouts heal inside the pipeline instead of failing batches.
+            retries=2 if faults.active_plan() is not None else 0,
+        )
+        # The serving loop feeds every request through one pipeline, so the
+        # overlap term sees the whole stream of columns.
+        stream_pred = engine.plan_report(
+            stream={**stream_cfg, "k": args.batch * args.requests}
+        )["streaming"]["perf"]["pack256"]
+        hidden_side = (
+            "transfer" if stream_pred["bottleneck"] == "compute"
+            else "compute"
+        )
+        print(
+            f"  stream: depth={stream_cfg['depth']} "
+            f"microbatch={stream_cfg['microbatch']} — model predicts "
+            f"x{stream_pred['speedup']:.3f} streamed speedup "
+            f"({stream_pred['bottleneck']}-bound, "
+            f"{stream_pred['overlap_efficiency'] * 100.0:.0f}% of "
+            f"{hidden_side} hidden)"
+        )
     # Host-side request batches, pregenerated so RHS generation stays out of
-    # the timed loop (the host->device transfer is part of serving).
+    # the timed loops (the host->device transfer is part of serving).
     rng = np.random.default_rng(args.seed + 1)
     batches = [
         rng.standard_normal((csr.n_cols, args.batch)).astype(np.float32)
         for _ in range(args.requests)
     ]
     # warm the path outside the timed loop
-    y_first = engine.finalize(engine.matmat(batches[0]))
+    y_first = engine.matmat(batches[0])
+    _sync(engine.device)
+    out: Dict[str, object] = {"engine": engine, "csr": csr, "batches": batches,
+                              "batch": batches[0], "y": y_first}
+    if faults.active_plan() is not None:
+        # Chaos parity: the same batch with injection suspended is the
+        # fault-free oracle; recovery must be bit-identical on the reference
+        # backend and within float tolerance on the kernels.
+        with faults.suspended():
+            y_ref = engine.matmat(batches[0])
+        chaos_err = float((y_first - y_ref).abs().max()) \
+            if y_ref.numel() else 0.0
+        chaos_tol = 0.0 if rep["backend_resolved"] == "reference" else 1e-5
+        print(
+            f"  chaos parity vs fault-free matmat: "
+            f"max_abs_err={chaos_err:.2e} (tol={chaos_tol:g})"
+        )
+        if not chaos_err <= chaos_tol:
+            raise SystemExit(
+                f"--chaos: recovered result diverged from fault-free oracle "
+                f"(max_abs_err={chaos_err:.2e} > tol={chaos_tol:g})"
+            )
+        out["chaos_err"] = chaos_err
+    if streamer is not None:
+        y_stream = streamer.matmat(batches[0])
+        err = float((y_stream - y_first).abs().max()) \
+            if y_first.numel() else 0.0
+        print(f"  stream parity vs sync matmat: max_abs_err={err:.2e}")
+        out.update(y_stream=y_stream, stream_err=err)
     t0 = time.time()
     for B in batches:
-        engine.finalize(engine.matmat(B))
+        engine.matmat(B)
+        _sync(engine.device)
     dt = time.time() - t0
     spmvs = args.requests * args.batch
     spmv_per_s = spmvs / max(dt, 1e-12)
@@ -101,16 +267,55 @@ def serve_spmv(args) -> Dict[str, object]:
         f"  served {args.requests} batches x {args.batch} RHS in {dt:.3f}s "
         f"sync ({spmv_per_s:.1f} SpMV/s, {gflops:.3f} GFLOP/s equivalent)"
     )
-    print(f"  schedule cache: {schedule_cache_stats()}")
-    return {
-        "engine": engine,
-        "csr": csr,
-        "batch": batches[0],
-        "y": y_first,
-        "seconds": dt,
-        "spmv_per_s": spmv_per_s,
-        "gflops": gflops,
-    }
+    out.update(seconds=dt, spmv_per_s=spmv_per_s, gflops=gflops)
+    if streamer is not None:
+        staging_before = streamer.staging
+        t0 = time.time()
+        for B in batches:
+            streamer.submit(B)  # the bounded window applies backpressure
+        outs = streamer.drain()
+        _sync(engine.device)
+        dt_stream = time.time() - t0
+        if outs.failures:
+            first = outs.failures[0]
+            raise SystemExit(
+                f"stream: {len(outs.failures)} batch(es) failed after "
+                f"{first.retries} retry(ies): {first.error!r}"
+            )
+        staging_after = streamer.staging
+        staging = {key: staging_after[key] - staging_before[key]
+                   for key in staging_before}
+        gflops_s = 2.0 * csr.nnz * spmvs / max(dt_stream, 1e-12) / 1e9
+        print(
+            f"  streamed the same {args.requests} batches in {dt_stream:.3f}s "
+            f"({spmvs / dt_stream:.1f} SpMV/s, {gflops_s:.3f} GFLOP/s, "
+            f"x{dt / max(dt_stream, 1e-12):.2f} vs sync); staging "
+            f"{staging['microbatches']} micro-batches: host packing "
+            f"{staging['pack_s'] * 1e3:.3f} ms, host-to-device copies "
+            f"{staging['copy_ms']:.3f} ms on the device"
+        )
+        out.update(streamer=streamer, stream_outs=list(outs),
+                   stream_seconds=dt_stream,
+                   stream_spmv_per_s=spmvs / max(dt_stream, 1e-12),
+                   stream_pred=stream_pred, staging=staging)
+    stats = schedule_cache_stats()
+    print(f"  schedule cache: {stats}")
+    out.update(plan_s=plan_s, cache_stats=stats)
+    if args.assert_warm_cache:
+        # A process pointed at a warm on-disk cache must not plan from
+        # scratch even once.
+        if stats["built"] != 0:
+            raise SystemExit(
+                f"--assert-warm-cache: expected zero cold plans but "
+                f"build_block_schedule ran {stats['built']} time(s) "
+                f"(disk_hits={stats['disk_hits']}, "
+                f"disk_rejects={stats['disk_rejects']})"
+            )
+        print(
+            f"  warm-cache assertion OK: zero cold plans "
+            f"(disk_hits={stats['disk_hits']})"
+        )
+    return out
 
 
 def serve_paged(args) -> Dict[str, object]:
@@ -260,6 +465,9 @@ def serve_paged(args) -> Dict[str, object]:
             f"paged-serve: plan-reuse violation — {builds_warm} schedule "
             f"build(s) after the first decode step (expected 0)"
         )
+    drill = None
+    if faults.active_plan() is not None and args.schedule_cache:
+        drill = _gather_store_drill(caches[0], backend, args.schedule_cache)
     return {
         "caches": caches,
         "config": cfg,
@@ -269,15 +477,88 @@ def serve_paged(args) -> Dict[str, object]:
         "max_err": max_err,
         "builds_warm": builds_warm,
         "reports": reports,
+        "store_drill": drill,
     }
 
 
+def _gather_store_drill(cache, backend: str, cache_dir: str) -> str:
+    """Chaos drill of the paged path: decode plans in memory only, so one
+    layer's gather plan makes a round trip through the self-healing store to
+    give the store's fault sites something to hit (store_write retries
+    inside persist; a store_read corruption heals by quarantine and
+    re-persist). Returns how the round trip went."""
+    from repro_torch.core import schedule_store
+    from repro_torch.models.paged_kv import _kv_engine
+
+    eng = _kv_engine(cache, backend=backend)
+    eng.schedule  # force the plan before persisting
+    path = eng.persist_schedule(cache_dir)
+    healed = "clean"
+    try:
+        schedule_store.load_schedule(
+            path, expect_stream_digest=eng.digest, device=eng.device
+        )
+    except schedule_store.ScheduleCacheMismatch:
+        schedule_store.quarantine(path)
+        eng.persist_schedule(cache_dir)
+        faults.note_recovered("store_read")
+        healed = "quarantined + re-persisted"
+        with faults.suspended():  # oracle read: verify the healed file
+            try:
+                schedule_store.load_schedule(
+                    path, expect_stream_digest=eng.digest, device=eng.device
+                )
+            except Exception as exc:
+                raise SystemExit(
+                    f"paged-serve: gather plan unreadable after "
+                    f"quarantine + re-persist: {exc!r}"
+                )
+    print(f"  chaos store drill: gather plan round-trip {healed}")
+    return healed
+
+
 def run(args) -> Dict[str, object]:
-    """Serve the mode the flags select: ``--spmv`` or ``--arch --paged``."""
+    """Serve the mode the flags select (``--spmv`` [``--solve``] or ``--arch
+    --paged``); with ``--chaos`` under that fault plan, gated on injection,
+    recovery and parity (the plan's report lands in the result as
+    ``"chaos"``)."""
+    if args.chaos is None:
+        return _run_mode(args)
+    plan = faults.FaultPlan(args.chaos)
+    with plan:
+        out = _run_mode(args)
+    rep = plan.report()
+    print(
+        f"chaos: spec={args.chaos!r} injected={rep['injected']} "
+        f"recovered={rep['recovered']} unrecovered={rep['unrecovered']}"
+    )
+    for site, s in sorted(rep["sites"].items()):
+        print(
+            f"  {site}: events={s['events']} injected={s['injected']} "
+            f"recovered={s['recovered']}"
+        )
+    if rep["injected"] == 0:
+        raise SystemExit(
+            "--chaos: spec injected no faults — nothing was exercised "
+            "(check the site names / after= thresholds against this mode)"
+        )
+    if rep["unrecovered"]:
+        raise SystemExit(
+            f"--chaos: {rep['unrecovered']} injected fault(s) were not "
+            f"recovered"
+        )
+    print("chaos: all injected faults recovered")
+    out["chaos"] = rep
+    return out
+
+
+def _run_mode(args) -> Dict[str, object]:
     if args.spmv and args.arch:
         raise ValueError("pass either --spmv or --arch --paged, not both")
+    if args.solve and not args.spmv:
+        raise ValueError("--solve requires --spmv to pick the matrix family")
     if args.spmv:
-        return serve_spmv(args)
+        return serve_solve(args) if args.solve else serve_spmv(args)
     if not args.arch:
         raise ValueError("pass --spmv FAMILY or --arch ID --paged")
     if not args.paged:
@@ -320,6 +601,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-block", type=int, default=4,
                     help="KV page size in tokens for --paged")
     ap.add_argument("--spmv-rows", type=int, default=8192)
+    ap.add_argument(
+        "--solve", choices=("cg", "pagerank", "jacobi", "power"),
+        help="serve an iterative solver (core.solvers) over the --spmv "
+        "matrix family instead of raw SpMV batches (cg/jacobi SPD-ify the "
+        "matrix via make_spd)",
+    )
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -339,11 +626,42 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the plan and the execution live",
     )
+    ap.add_argument(
+        "--stream", default=None, metavar="SPEC",
+        help="also serve the --spmv batches through the streaming pipeline "
+        "(core.runtime.StreamingExecutor): 'depth=D,microbatch=B' (either "
+        "key optional; defaults depth=2, microbatch=32)",
+    )
+    ap.add_argument(
+        "--schedule-cache", default=None, metavar="DIR",
+        help="persistent BlockSchedule cache directory (default: "
+        "$REPRO_SCHEDULE_CACHE); cold processes load known plans from here",
+    )
+    ap.add_argument(
+        "--assert-warm-cache", action="store_true",
+        help="exit nonzero unless this process planned zero schedules from "
+        "scratch (requires a warm --schedule-cache)",
+    )
+    ap.add_argument(
+        "--chaos", default=None, metavar="SPEC",
+        help="run the selected mode under deterministic fault injection "
+        "(core.faults spec, e.g. 'store_read:rate=1,count=1;"
+        "dispatch_timeout:after=1,count=1'); exits nonzero unless at least "
+        "one fault was injected, every injected fault recovered, and parity "
+        "with the fault-free oracle held",
+    )
     return ap
 
 
 def main(argv=None) -> None:
-    run(build_parser().parse_args(argv))
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.chaos is not None:
+        try:
+            faults.parse_fault_spec(args.chaos)
+        except ValueError as exc:
+            ap.error(str(exc))
+    run(args)
 
 
 if __name__ == "__main__":

@@ -92,15 +92,15 @@ def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype, depth):
     _close(y, sell_spmv_plain(None, values, x, plan=plan, cols_per_chunk=8))
 
 
-@pytest.mark.parametrize("k", [1, 7, 8, 33, 64, 65, 128, 200])
+@pytest.mark.parametrize("k", [1, 7, 8, 32, 33, 64, 65, 128, 200])
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("depth", [1, 2, 4])
 def test_sell_spmm_kernel_matches_plain(cuda, k, packed, dtype, depth):
     """Every k the column tile meets: one column (k = 1), k not a multiple
-    of 4 or 8 (7, 33, 65: 4-byte copies, masked columns), k = 8 and the
-    main path's 64 (whole rows in 16-byte pieces), one full 128-column
-    tile, and k = 200 (two tiles)."""
+    of 4 or 8 (7, 33, 65: 4-byte copies, masked columns), k = 8, the
+    streamed micro-batch's 32 and the sync path's 64 (whole rows in 16-byte
+    pieces), one full 128-column tile, and k = 200 (two tiles)."""
     va, plan = _plan_case(CASES["banded"](), cpc=4, block_rows=8,
                           packed=packed, device=cuda)
     rng = np.random.default_rng(4)
@@ -480,3 +480,195 @@ def test_coalesced_gather_work_queue_per_stream(cuda):
     torch.cuda.synchronize()
     for got in outs:
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Per-micro-batch pipeline hooks, the streaming executor and the solvers'
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+# ~50 ms of spin on an H100: long enough that host work issued behind it
+# finishes first.
+SPIN_CYCLES = 100_000_000
+
+
+def test_finalize_waits_for_its_own_micro_batch_only(cuda):
+    """finalize of batch i returns while batch i+1's kernel is still queued
+    behind a spin kernel; batch i+1's copy (on the copy stream) is not held
+    up by the spin; both equal matmat bit for bit."""
+    csr = CASES["banded"]()
+    rng = np.random.default_rng(30)
+    X1, X2 = (rng.standard_normal((csr.n_cols, 8)).astype(np.float32)
+              for _ in range(2))
+    eng = SpMVEngine(csr, device=cuda)
+    want1, want2 = eng.matmat(X1), eng.matmat(X2)
+    p1 = eng.dispatch(eng.stage(X1))
+    torch.cuda._sleep(SPIN_CYCLES)
+    p2 = eng.dispatch(eng.stage(X2))
+    y1 = eng.finalize(p1)
+    p2.staged.copied.synchronize()
+    assert not p2.done.query()  # still behind the spin
+    y2 = eng.finalize(p2)
+    assert torch.equal(y1, want1) and torch.equal(y2, want2)
+    assert p2.staged.host.is_pinned()
+
+
+def test_matmat_and_matvec_stage_host_arrays_without_blocking(cuda):
+    """matmat and matvec place a host array as stage does (pinned memory,
+    the copy stream) and return while the compute stream is still busy
+    with a spin kernel queued before them; matmat equals the per-batch
+    hooks bit for bit."""
+    csr = CASES["banded"]()
+    X = np.random.default_rng(32).standard_normal(
+        (csr.n_cols, 8)).astype(np.float32)
+    eng = SpMVEngine(csr, device=cuda)
+    want = eng.finalize(eng.dispatch(eng.stage(X)))
+    want_v = eng.matvec(X[:, 0])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    Y, y = eng.matmat(X), eng.matvec(X[:, 0])
+    assert not spun.query()  # neither call waited behind the spin
+    torch.cuda.synchronize()
+    assert torch.equal(Y, want) and torch.equal(y, want_v)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("microbatch", [8, 5])
+def test_streamed_equals_sync_on_card(cuda, depth, microbatch):
+    from repro_torch.core.runtime import StreamingExecutor
+
+    csr = CASES["banded"]()
+    X = np.random.default_rng(31).standard_normal(
+        (csr.n_cols, 21)).astype(np.float32)
+    eng = SpMVEngine(csr, device=cuda)
+    streamer = StreamingExecutor(eng, microbatch=microbatch, depth=depth)
+    _close(streamer.matmat(X), eng.matmat(X))
+    handles = [streamer.submit(X[:, :k]) for k in (3, 21, 9)]
+    outs = streamer.drain()
+    assert outs.ok and all(h.done for h in handles)
+    for k, got in zip((3, 21, 9), outs):
+        _close(got, eng.matmat(X[:, :k]))
+    staging = streamer.staging
+    assert staging["microbatches"] == 2 * -(-21 // microbatch) + sum(
+        -(-k // microbatch) for k in (3, 9))
+    assert staging["copy_ms"] > 0
+
+
+def test_pinned_ring_buffer_waits_for_its_copy(cuda):
+    """A ring buffer is packed again only after the copy that last read it
+    has completed; a stress of many batches at depth 2 with the copies held
+    behind a spin stays equal to the synchronous result."""
+    from repro_torch.core.runtime import PinnedRing, StreamingExecutor
+
+    ring = PinnedRing(2, 64, 4, torch.float32)
+    side = torch.cuda.Stream(device=cuda)
+    src = torch.zeros((64, 4))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev = torch.cuda.Event()
+        ev.record()
+    ring.note_copy(0, ev)
+    ring.pack(0, src)
+    assert ev.query()
+
+    csr = CASES["random"]()
+    rng = np.random.default_rng(32)
+    batches = [rng.standard_normal((csr.n_cols, 8)).astype(np.float32)
+               for _ in range(12)]
+    eng = SpMVEngine(csr, device=cuda)
+    streamer = StreamingExecutor(eng, microbatch=3, depth=2)
+    with torch.cuda.stream(eng.copy_stream()):
+        torch.cuda._sleep(SPIN_CYCLES)
+    for B in batches:
+        streamer.submit(B)
+    outs = streamer.drain()
+    assert outs.ok and len(outs) == len(batches)
+    for B, got in zip(batches, outs):
+        _close(got, eng.matmat(B))
+
+
+def _solve(name, op, loop, b):
+    from repro_torch.core import solvers
+
+    if name == "cg":
+        return solvers.cg(op, b, tol=1e-6, loop=loop, trace=True)
+    if name == "jacobi":
+        return solvers.jacobi(op, b, tol=1e-6, loop=loop, trace=True)
+    if name == "pagerank":
+        return solvers.pagerank(op, tol=1e-6, loop=loop, trace=True)
+    return solvers.power_iteration(op, tol=1e-5, maxiter=500, loop=loop,
+                                   trace=True)
+
+
+@pytest.mark.parametrize("name", ["cg", "jacobi", "pagerank", "power"])
+def test_graph_captured_solve_equals_python_loop_bitwise(cuda, name):
+    """loop='while' (blocks of guarded steps, one CUDA graph) and the
+    python-loop oracle agree bit for bit; every matvec of either went
+    through sell_spmv (replays counted)."""
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.solvers import transition_matrix
+
+    csr = matrices.spd(4000, 6, 0.6)(seed=40)
+    op = transition_matrix(matrices.powerlaw(4000, 8)(seed=41)) \
+        if name == "pagerank" else csr
+    eng = get_engine(op, device=cuda)
+    b = np.random.default_rng(42).standard_normal(4000).astype(np.float32)
+    results = {}
+    for loop in ("python", "while", "while"):  # capture, then replay
+        before = sell_spmv_cuda.launches
+        res = _solve(name, eng, loop, b)
+        assert res.converged and res.loop == loop
+        assert sell_spmv_cuda.launches - before == res.matvecs
+        results.setdefault(loop, res)
+        assert torch.equal(res.x, results[loop].x)
+    py, wh = results["python"], results["while"]
+    assert wh.iterations == py.iterations
+    assert torch.equal(wh.x, py.x)
+    assert np.array_equal(wh.residual_trace, py.residual_trace)
+    assert py.matvecs == py.iterations + (name == "cg")
+
+
+@pytest.mark.parametrize("name", ["cg", "jacobi"])
+def test_graph_warm_solve_takes_each_right_hand_side(cuda, name):
+    """A replayed graph reads the buffers it was captured with: b1, b2, b1
+    on one warm engine must each solve their own system."""
+    from repro_torch.core.engine import get_engine
+
+    csr = matrices.spd(3000, 5, 0.6)(seed=43)
+    eng = get_engine(csr, device=cuda)
+    dense = csr.todense().astype(np.float64)
+    rng = np.random.default_rng(44)
+    b1, b2 = (rng.standard_normal(3000).astype(np.float32) for _ in range(2))
+    for b in (b1, b2, b1):
+        res = _solve(name, eng, "while", b)
+        assert res.converged
+        x = res.x.cpu().numpy().astype(np.float64)
+        assert np.linalg.norm(b - dense @ x) / np.linalg.norm(b) <= 5e-6
+
+
+def test_solve_whose_capture_fails_raises(cuda):
+    """A matvec that synchronises the host cannot be captured: loop='while'
+    raises instead of running uncaptured."""
+    from repro_torch.core import solvers
+
+    csr = matrices.spd(2000, 5, 0.6)(seed=45)
+    eng = SpMVEngine(csr, device=cuda)
+    mv = eng.device_matvec()
+
+    class HostSyncing:
+        n_rows = n_cols = csr.n_rows
+        device = eng.device
+        sell = eng.sell
+
+        def matvec(self, x):
+            return eng.matvec(x)
+
+        def device_matvec(self):
+            return lambda x: mv(x) * float(x.abs().max() > -1)
+
+    b = np.ones(2000, np.float32)
+    with pytest.raises(RuntimeError, match="could not capture"):
+        solvers.jacobi(HostSyncing(), b, loop="while")
+    assert solvers.jacobi(HostSyncing(), b, loop="python").converged

@@ -155,3 +155,158 @@ def test_serve_paged_defaults_to_the_card(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run(args)
+
+
+# ---------------------------------------------------------------------------
+# --solve, --stream, --schedule-cache / --assert-warm-cache and --chaos
+# ---------------------------------------------------------------------------
+
+
+def _parse(argv):
+    return serve.build_parser().parse_args(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("solve,family", [("cg", "banded"),
+                                          ("jacobi", "banded"),
+                                          ("pagerank", "powerlaw"),
+                                          ("power", "powerlaw")])
+def test_serve_solve_in_process(solve, family, capsys):
+    out = serve.run(_parse(["--spmv", family, "--spmv-rows", "600",
+                            "--solve", solve, "--requests", "2"]))
+    text = capsys.readouterr().out
+    assert f"solve-serve: {solve} on {family} 600x600" in text
+    assert "schedule_builds=1, loop=while" in text and "iters/s" in text
+    assert out["tol"] == serve.SOLVE_TOLS[solve]
+    cold, warm = out["cold"], out["warm"]
+    assert cold.schedule_builds == 1 and len(warm) == 2
+    assert all(r.converged and r.schedule_builds == 0 for r in warm)
+    assert torch.equal(cold.x, warm[0].x)
+    if solve == "pagerank":
+        assert abs(float(cold.x.sum()) - 1.0) <= 1e-5
+
+
+def test_serve_solve_gates(monkeypatch):
+    # power iteration on the non-symmetric banded family does not converge
+    with pytest.raises(SystemExit, match="did not converge"):
+        serve.run(_parse(["--spmv", "banded", "--spmv-rows", "600",
+                          "--solve", "power", "--requests", "1"]))
+    from repro_torch.core import solvers
+
+    real = solvers.cg
+
+    def rebuilding_cg(*args, **kwargs):
+        res = real(*args, **kwargs)
+        res.schedule_builds = 1
+        return res
+
+    monkeypatch.setattr(solvers, "cg", rebuilding_cg)
+    with pytest.raises(SystemExit, match="plan-reuse violation"):
+        serve.run(_parse(["--spmv", "banded", "--spmv-rows", "300",
+                          "--solve", "cg", "--requests", "1"]))
+    with pytest.raises(ValueError, match="--solve requires --spmv"):
+        serve.run(_parse(["--arch", "llama3-8b", "--paged", "--solve",
+                          "cg"]))
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_serve_stream_in_process(backend, capsys):
+    out = serve.run(_parse(["--spmv", "banded", "--spmv-rows", "700",
+                            "--batch", "9", "--requests", "3", "--backend",
+                            backend, "--stream", "depth=2,microbatch=4"]))
+    text = capsys.readouterr().out
+    assert "stream: depth=2 microbatch=4 — model predicts" in text
+    assert "stream parity vs sync matmat: max_abs_err=0.00e+00" in text
+    assert "streamed the same 3 batches" in text
+    assert out["staging"]["microbatches"] == 3 * 3
+    eng = out["engine"]
+    assert torch.equal(out["y_stream"], out["y"])
+    for B, got in zip(out["batches"], out["stream_outs"]):
+        assert torch.equal(got, eng.matmat(B))
+    assert out["stream_spmv_per_s"] > 0
+    assert out["stream_pred"]["speedup"] >= 1.0
+
+
+def test_serve_schedule_cache_and_warm_assertion(tmp_path, capsys):
+    argv = ["--spmv", "random", "--spmv-rows", "500", "--batch", "3",
+            "--requests", "1", "--schedule-cache", str(tmp_path / "warm")]
+    cold = serve.run(_parse(argv))
+    assert cold["cache_stats"]["built"] == 1
+    assert cold["cache_stats"]["disk_saves"] == 1
+    clear_engine_cache()
+    clear_schedule_cache()
+    warm = serve.run(_parse(argv + ["--assert-warm-cache"]))
+    assert warm["cache_stats"]["built"] == 0
+    assert warm["cache_stats"]["disk_hits"] == 1
+    assert torch.equal(warm["y"], cold["y"])
+    assert "warm-cache assertion OK: zero cold plans (disk_hits=1)" in \
+        capsys.readouterr().out
+    clear_engine_cache()
+    clear_schedule_cache()
+    with pytest.raises(SystemExit, match="expected zero cold plans"):
+        serve.run(_parse(argv[:-1] + [str(tmp_path / "cold"),
+                                      "--assert-warm-cache"]))
+
+
+CHAOS = "store_read:rate=1,count=1;store_write:count=1;" \
+        "dispatch_timeout:after=1,count=1"
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_serve_chaos_heals_every_fault(tmp_path, backend, capsys):
+    argv = ["--spmv", "banded", "--spmv-rows", "600", "--batch", "8",
+            "--requests", "2", "--backend", backend, "--stream",
+            "depth=2,microbatch=4", "--schedule-cache", str(tmp_path)]
+    free = serve.run(_parse(argv))  # leaves a warm plan file to corrupt
+    clear_engine_cache()
+    clear_schedule_cache()
+    out = serve.run(_parse(argv + ["--chaos", CHAOS]))
+    text = capsys.readouterr().out
+    rep = out["chaos"]
+    assert rep["injected"] == 3 and rep["unrecovered"] == 0
+    assert all(s["injected"] == 1 for s in rep["sites"].values())
+    assert "chaos: all injected faults recovered" in text
+    assert out["chaos_err"] == 0.0 and torch.equal(out["y"], free["y"])
+    assert out["stream_err"] <= (0.0 if backend == "reference" else 1e-5)
+
+
+def test_serve_chaos_gates(tmp_path):
+    argv = ["--spmv", "banded", "--spmv-rows", "300", "--batch", "2",
+            "--requests", "1"]
+    with pytest.raises(SystemExit, match="injected no faults"):
+        serve.run(_parse(argv + ["--chaos", "shard_fail:count=1"]))
+    # every write attempt fails: the plan degrades to memory, unhealed
+    with pytest.raises(SystemExit, match="were not recovered"):
+        serve.run(_parse(argv + ["--schedule-cache", str(tmp_path),
+                                 "--chaos", "store_write:rate=1"]))
+    with pytest.raises(SystemExit) as info:
+        serve.main(argv + ["--device", "cpu", "--chaos", "nosuch:rate=1"])
+    assert info.value.code == 2  # argparse's usage error
+
+
+def test_serve_paged_chaos_store_drill(tmp_path, capsys):
+    argv = ["--arch", "llama3-8b", "--reduced", "--paged", "--batch", "2",
+            "--prompt-len", "5", "--decode-steps", "2", "--page-block", "4",
+            "--schedule-cache", str(tmp_path), "--chaos",
+            "store_read:rate=1,count=1"]
+    out = serve.run(_parse(argv))
+    assert out["store_drill"] == "quarantined + re-persisted"
+    assert out["chaos"]["injected"] == 1 and out["chaos"]["unrecovered"] == 0
+    assert "chaos store drill: gather plan round-trip quarantined" in \
+        capsys.readouterr().out
+    names = os.listdir(tmp_path)
+    assert any(n.endswith(".npz") for n in names)
+    assert any(n.endswith(".bad") for n in names)
+
+
+def test_serve_cli_solve_and_gate_exit_codes():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+            "cpu", "--requests", "1", "--spmv-rows", "400", "--solve"]
+    ok = subprocess.run(base + ["cg", "--spmv", "banded"], cwd=ROOT,
+                        env=env, capture_output=True, text=True, timeout=300)
+    assert ok.returncode == 0, ok.stderr
+    assert "converged=True" in ok.stdout
+    bad = subprocess.run(base + ["power", "--spmv", "banded"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert bad.returncode == 1 and "did not converge" in bad.stderr
