@@ -73,7 +73,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 6. Solvers: ``serve --spmv banded --spmv-rows 1000000 --solve cg``
    (``make_spd`` of the banded matrix) and ``--spmv powerlaw --solve
-   pagerank``, in process, a cold solve and 4 warm ones each: iterations,
+   pagerank``, in process, a cold solve and 2 warm ones each: iterations,
    iters/s, schedule builds (serve itself gates convergence, one build cold
    and none warm); `sell_spmv`'s launches equal the solves' own count of
    matvecs (CUDA graph replays counted); cg's true residual ``||b - A x|| /
@@ -92,24 +92,53 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    packing and the host-to-device copy, depth 1 and 2 in turns on the same
    batches, and a torch.profiler window over two requests (copy and kernel
    intervals, and the time they ran at once).
-8. Plan store and chaos: phase 3's serve cold with ``--schedule-cache`` (a
-   directory under ``build/``, removed at the end; the plan file's size is
-   printed), then warm with ``--assert-warm-cache`` (zero builds), cold and
-   warm plan seconds; ``--chaos 'store_read:rate=1,count=1;
+8. Plan store and chaos: the banded serve at 131,072 rows cold with
+   ``--schedule-cache`` (a directory under ``build/``, removed at the end;
+   the plan file's size is printed), then warm with ``--assert-warm-cache``
+   (zero builds), cold and warm plan seconds; the 1M banded schedule alone
+   built, built and saved, and loaded; ``--chaos 'store_read:rate=1,count=1;
    store_write:count=1;dispatch_timeout:after=1,count=1'`` with ``--stream``
    on a 131,072-row banded matrix, and ``--paged --chaos
    store_read:rate=1,count=1`` on llama3-8b at full width (prompt 128, 2
    decode steps), each with every injected fault recovered.
 
-Every served path (the serve runs of phases 3, 5, 6, 7 and 8; phase 3's
-matvec) is driven with the launch counts set to 0 just before it and read
-just after; the JSON line before the card line sums them per kernel (one
-entry per kernel; `sell_spmv`'s times are at the solver shape whose served
-solves launched it most). The launches of phase 6's extra solves and of
-phase 7's checks and timing runs are printed apart and not summed. The last line is
-``{"ok": true, "device": {...}}``. Needs one CUDA device.
+9. Tuner: ``serve --spmv banded --spmv-rows 131072 --batch 64 --tune
+   model --tune-cache build/tune-store-<pid>`` cold (72 trials: the
+   default space with k_tile, which the kernels do not have, cut to one
+   value) and warm
+   (0 trials, the same winner, the same served batch), with the seconds of
+   each; then `get_tuned_engine(mode="measure")` at the PageRank operator's
+   1M shape (k = 1, `sell_spmv`; 27 geometries: cols_per_chunk and
+   block_rows in {4, 8, 16}, buffer_depth in {1, 2, 4}) and at the banded
+   1M shape (k = 64, `sell_spmm`; the 9 (cols_per_chunk, block_rows) pairs
+   at depth 2): every candidate's time, the infeasible ones, the winner
+   beside the default geometry (8, 8, 2), and the winner's engine within
+   ``1e-5 + 1e-5 * |plain|`` of `sell_spmv_plain` / `sell_spmm_plain`.
+10. Sharded engine: `ShardedSpMVEngine` with 4 shards on a 1x1 grid of the
+   card for partitions even, nnz, cost (and cost2d when its bounds take
+   under 30 s; their time is printed) at the banded 1M shape (matmat,
+   k = 64) and the PageRank operator (matvec), each against the
+   single-device engine at ``1e-5 + 1e-5 * |y|``, with every shard's width,
+   padded plan elements, coalesce rate and kernel time beside the single
+   plan's; a ``shard_fail`` drill (one shard recomputed by the reference
+   executor, against the fault-free result); ``serve --spmv banded
+   --spmv-rows 1000000 --batch 64 --requests 8 --mesh 1,1 --partition
+   cost`` with and without ``--chaos 'shard_fail:after=1,count=1'``; and
+   sharded CG (the host loop) on phase 6's CG matrix, converged within
+   2 * tol true residual.
+
+Every served path (the serve runs of phases 3 and 5-10; phase 3's matvec)
+is driven with the launch counts set to 0 just before it and read just
+after; the JSON line before the card line sums them per kernel (one entry
+per kernel; `sell_spmv`'s times are at the solver shape whose served solves
+launched it most). The launches of phase 6's extra solves, phase 7's checks
+and timing runs, phase 9's measured searches and phase 10's engine runs and
+sharded CG are printed apart and not summed. The seconds of each phase are
+printed at the end. The last line is ``{"ok": true, "device": {...}}``.
+Needs one CUDA device.
 """
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -995,11 +1024,11 @@ def solver_path(device, smi):
     for solve, family in (("cg", "banded"), ("pagerank", "powerlaw")):
         out, launches = _serve(["--spmv", family, "--spmv-rows",
                                 str(MAIN_ROWS), "--solve", solve,
-                                "--requests", "4"])
+                                "--requests", "2"])
         _add(served, launches)
         served_spmv[solve] = launches["sell_spmv"]
         runs = [out["cold"]] + out["warm"]
-        _solve_launch_check(f"{solve} (cold + 4 warm)", runs, launches)
+        _solve_launch_check(f"{solve} (cold + 2 warm)", runs, launches)
         op = out["csr"] if solve == "cg" else solvers.transition_matrix(
             out["csr"])
         eng = get_engine(op, device=device)
@@ -1289,9 +1318,10 @@ def stream_path(device, smi):
 
 
 def store_and_chaos(device, smi):
-    """Phase 8: phase 3's serve cold into a plan store under build/ and warm
-    from it (zero builds), then the chaos drills of the stream path and the
-    paged path; the store is removed at the end."""
+    """Phase 8: the banded serve at 131,072 rows cold into a plan store
+    under build/ and warm from it (zero builds), the 1M schedule alone
+    built, built and saved, and loaded, then the chaos drills of the stream
+    path and the paged path; the store is removed at the end."""
     import shutil
 
     import torch
@@ -1310,16 +1340,16 @@ def store_and_chaos(device, smi):
         return out
 
     try:
-        argv = ["--spmv", "banded", "--spmv-rows", str(MAIN_ROWS), "--batch",
-                str(MAIN_BATCH), "--requests", "8", "--schedule-cache",
-                str(store / "main")]
+        argv = ["--spmv", "banded", "--spmv-rows", str(RANDOM_ROWS),
+                "--batch", str(MAIN_BATCH), "--requests", "8",
+                "--schedule-cache", str(store / "main")]
         _fresh_caches()
         cold = serve_counted(argv)
         files = sorted((store / "main").glob("*.npz"))
         if cold["cache_stats"]["built"] != 1 or len(files) != 1:
             raise AssertionError(f"cold store run: {cold['cache_stats']}, "
                                  f"{len(files)} files")
-        y_cold, cold_s, csr = cold["y"], cold["plan_s"], cold["csr"]
+        y_cold, cold_s = cold["y"], cold["plan_s"]
         del cold
         _fresh_caches()
         warm = serve_counted(argv + ["--assert-warm-cache"])
@@ -1333,7 +1363,7 @@ def store_and_chaos(device, smi):
         # serve's "planned in" holds the plan report too: the schedule
         # alone, built, built and saved, and loaded (matrix and digests
         # ready beforehand)
-        sell = normalize_to_sell(csr)
+        sell = normalize_to_sell(_banded_main())
         _sell_content_digest(sell)
         sched_s = {}
         for label, cache_dir in (("built", None),
@@ -1348,7 +1378,7 @@ def store_and_chaos(device, smi):
             eng.schedule
             torch.cuda.synchronize()
             sched_s[label] = time.perf_counter() - t0
-        del eng, sell, csr
+        del eng, sell
         print("schedule alone, seconds: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sched_s.items()))
         # the stream path under chaos, on a plan file made fault-free first
@@ -1390,6 +1420,369 @@ def _chaos_check(name, out):
         raise AssertionError(f"chaos drill ({name}): {rep}")
 
 
+# Phase 9's measured searches: PageRank's operator (k = 1, sell_spmv) over
+# cols_per_chunk x block_rows x buffer_depth, the banded matrix (k = 64,
+# sell_spmm) over the 9 (cols_per_chunk, block_rows) pairs at depth 2.
+TUNE_SPACE_PAGERANK = {"cols_per_chunk": (4, 8, 16), "block_rows": (4, 8, 16),
+                       "buffer_depth": (1, 2, 4), "k_tile": (8,),
+                       "packed": (1,), "value_dtype": ("native",)}
+TUNE_SPACE_BANDED = dict(TUNE_SPACE_PAGERANK, buffer_depth=(2,))
+DEFAULT_GEOMETRY = (8, 8, 2)  # the engine's cols_per_chunk, block_rows, depth
+SHARDS = 4
+COST2D_LIMIT_S = 30.0
+
+
+def _geometry(cand):
+    return (cand["cols_per_chunk"], cand["block_rows"], cand["buffer_depth"])
+
+
+@functools.lru_cache(maxsize=None)
+def _pagerank_operator():
+    from repro_torch.core import matrices, solvers
+
+    return solvers.transition_matrix(matrices.powerlaw(MAIN_ROWS, 12)(seed=0))
+
+
+@functools.lru_cache(maxsize=None)
+def _banded_main():
+    from repro_torch.core import matrices
+
+    return matrices.banded(MAIN_ROWS, 24, 0.8)(np.random.default_rng(0))
+
+
+def _measured_search(name, csr, k, space, device):
+    """`get_tuned_engine(mode="measure")` over `space`; prints every
+    candidate's time, the infeasible ones and the winner beside the
+    engine's default geometry, and holds the winner's engine against the
+    kernel's plain version. Returns the worst error."""
+    import torch
+
+    from repro_torch.core import tune
+    from repro_torch.core.runtime import normalize_to_sell
+    from repro_torch.kernels.sell_spmm import sell_spmm_plain
+    from repro_torch.kernels.sell_spmv import sell_spmv_plain
+
+    sell = normalize_to_sell(csr)
+    cands = tune._candidates(tune._normalize_space(space))
+    need = sum(tune.candidate_device_bytes(sell, c, with_schedule=True)
+               for c in cands)
+    free, total = torch.cuda.mem_get_info(device)
+    log, rounds = [], 3
+    t0 = time.perf_counter()
+    eng, plan = tune.get_tuned_engine(sell, k=k, mode="measure", space=space,
+                                      rounds=rounds, device=device,
+                                      trial_log=log)
+    search_s = time.perf_counter() - t0
+    groups = max(t.group for t in log) + 1
+    print(f"{name} (k = {k}): {len(cands)} candidates, device bytes bound "
+          f"{need} B together against {free} B free of {total}; measured in "
+          f"{groups} group(s) in {search_s:.1f}s ({plan.trials} timed calls, "
+          f"CUDA events, best of {rounds} interleaved rounds)")
+    by_geometry = {}
+    for t in sorted(log, key=lambda t: t.us):
+        g = _geometry(t.candidate)
+        by_geometry[g] = t
+        print(f"  cols_per_chunk {g[0]:2d} block_rows {g[1]:2d} buffer_depth "
+              f"{g[2]}: " + (f"{t.us / 1e3:.4f} ms (group {t.group})"
+                             if t.error is None else
+                             f"infeasible ({t.error[:80]})"))
+    infeasible = [_geometry(t.candidate) for t in log if t.error is not None]
+    default = by_geometry[DEFAULT_GEOMETRY]
+    print(f"{name}: winner {_geometry(dataclasses.asdict(plan))} "
+          f"{plan.cost / 1e3:.4f} ms against the default "
+          f"{DEFAULT_GEOMETRY} {default.us / 1e3:.4f} ms "
+          f"(x{default.us / plan.cost:.3f}); infeasible "
+          f"{infeasible or 'none'}")
+    values = eng.plan_values(torch.float32)
+    rhs = torch.as_tensor(np.random.default_rng(17).standard_normal(
+        (sell.n_cols, k)).astype(np.float32), device=device)
+    kw = _kernel_kw(eng)
+    if k == 1:
+        got = eng.matvec(rhs[:, 0])
+        want = sell_spmv_plain(None, values, rhs[:, 0], **kw)
+    else:
+        got = eng.matmat(rhs)
+        want = sell_spmm_plain(None, values, rhs, k_tile=eng.k_tile, **kw)
+    err = _max_err(got, want[:sell.n_rows])
+    print(f"{name}: the tuned engine ({eng.backend_resolved}, "
+          f"cols_per_chunk {eng.cols_per_chunk}, block_rows "
+          f"{eng.block_rows}, buffer_depth {eng.buffer_depth}) against "
+          f"{'sell_spmv_plain' if k == 1 else 'sell_spmm_plain'}: max abs "
+          f"err {err:.3e}")
+    return err
+
+
+def tuner_path(device, smi):
+    """Phase 9: serve --tune model cold and warm into a tune store under
+    build/ (removed at the end), then measured searches at the PageRank and
+    banded 1M shapes. Returns the launches of the serve runs and of the
+    searches and checks apart, and each kernel's worst error against its
+    plain version."""
+    import shutil
+
+    from repro_torch.core import tune
+
+    _phase(f"9. tuner: serve --tune model, measured searches ({smi})")
+    store = ROOT / "build" / f"tune-store-{os.getpid()}"
+    served, checks = {}, {}
+    try:
+        argv = ["--spmv", "banded", "--spmv-rows", str(RANDOM_ROWS),
+                "--batch", str(MAIN_BATCH), "--tune", "model",
+                "--tune-cache", str(store)]
+        runs = []
+        for label in ("cold", "warm"):
+            _fresh_caches()
+            tune.clear_tune_cache()  # what a new process starts with
+            out, launches = _serve(argv)
+            _add(served, launches)
+            runs.append(out)
+            t = out["tuned"]
+            print(f"tune {label}: {t.trials} trials, source {t.source}, "
+                  f"{out['tune_s']:.3f}s; winner cols_per_chunk "
+                  f"{t.cols_per_chunk} block_rows {t.block_rows} k_tile "
+                  f"{t.k_tile} packed {t.packed} buffer_depth "
+                  f"{t.buffer_depth} value_dtype {t.value_dtype}; "
+                  f"sell_spmm launches {launches['sell_spmm']}")
+        cold, warm = (r["tuned"] for r in runs)
+        files = sorted(store.glob("tune-*.json"))
+        # the default space with k_tile, which the kernels do not have, cut
+        # to one value
+        n_cand = int(np.prod([len(v) for v in tune.DEFAULT_SPACE.values()])
+                     ) // len(tune.DEFAULT_SPACE["k_tile"])
+        if (cold.trials, cold.source) != (n_cand, "search") or (
+                warm.trials, warm.source) != (0, "disk") or len(files) != 1:
+            raise AssertionError(f"tune store: cold {cold}, warm {warm}, "
+                                 f"{len(files)} files")
+        if dataclasses.replace(warm, trials=0, source="") != \
+                dataclasses.replace(cold, trials=0, source=""):
+            raise AssertionError(f"warm winner {warm} differs from {cold}")
+        err = _max_err(runs[1]["y"], runs[0]["y"])
+        print(f"warm served batch against cold: max abs err {err:.3e}; model "
+              f"mode at {RANDOM_ROWS} rows {runs[0]['tune_s'] / n_cand * 1e3:.1f}"
+              f" ms of host numpy a candidate")
+        del runs
+        _fresh_caches()
+        worst = {}
+        for name, kernel, csr, k, space in (
+                ("pagerank operator", "sell_spmv", _pagerank_operator(), 1,
+                 TUNE_SPACE_PAGERANK),
+                ("banded", "sell_spmm", _banded_main(), MAIN_BATCH,
+                 TUNE_SPACE_BANDED)):
+            tune.clear_tune_cache()
+            _reset_launches()
+            worst[kernel] = _measured_search(name, csr, k, space, device)
+            _add(checks, _read_launches())
+            del csr
+            _fresh_caches()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+        _fresh_caches()
+    return served, checks, worst
+
+
+def _kernel_kw(eng):
+    """The plan and geometry an engine launches its kernels with."""
+    return dict(plan=eng.device_plan, cols_per_chunk=eng.cols_per_chunk,
+                block_rows=eng.block_rows, buffer_depth=eng.buffer_depth)
+
+
+def _kernel_call(eng, rhs):
+    """The engine's own kernel on a right-hand side already on the card
+    (what `matvec`/`matmat` launch, without the staging)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    values = eng.plan_values(torch.float32)
+    kw = _kernel_kw(eng)
+    if rhs.dim() == 1:
+        return lambda: ops.sell_spmv(None, values, rhs, **kw)
+    return lambda: ops.sell_spmm(None, values, rhs, k_tile=eng.k_tile, **kw)
+
+
+def _plan_line(eng):
+    """Width, padded plan elements, wide accesses and coalesce rate of an
+    engine's plan (the rate over its padded stream, as `plan_report`)."""
+    import torch
+
+    sched = eng.schedule
+    elems = eng.plan_values(torch.float32).numel()
+    wide = int(sched.n_warps.sum())
+    return (int(np.max(eng.sell.slice_widths)), elems, wide,
+            elems / (wide * eng.block_rows))
+
+
+def sharded_path(device, smi):
+    """Phase 10: ShardedSpMVEngine with 4 shards on one card for each
+    partition at the banded (matmat, k = 64) and PageRank (matvec) 1M
+    shapes against the single-device engine, per-shard plans and kernel
+    times, a shard_fail drill, serve --mesh 1,1 with and without chaos, and
+    sharded CG. Returns the serve runs' launches and the checks' launches.
+    (Every comparison here is kernel against kernel or against the
+    reference executor, so none enters the kernels line's errors.)"""
+    import torch
+
+    from repro_torch.core import matrices, solvers
+    from repro_torch.core.dist import ShardedSpMVEngine
+    from repro_torch.core.engine import SpMVEngine
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.partition import shard_bounds
+    from repro_torch.core.runtime import normalize_to_sell
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    _phase(f"10. sharded engine: {SHARDS} shards on one card, serve --mesh "
+           f"({smi})")
+    mesh = parse_mesh_spec("1,1")
+    served, checks = {}, {}
+    banded_single = None
+    for name, csr, k in (("banded", _banded_main(), MAIN_BATCH),
+                         ("pagerank operator", _pagerank_operator(), 1)):
+        _fresh_caches()
+        sell = normalize_to_sell(csr)
+        del csr
+        rng = np.random.default_rng(19)
+        rhs = torch.as_tensor(rng.standard_normal(
+            (sell.n_cols, k)).astype(np.float32), device=device)
+        if k == 1:
+            rhs = rhs[:, 0].contiguous()
+        single = SpMVEngine(sell, device=device)
+        call = single.matvec if k == 1 else single.matmat
+        want = call(rhs)
+        w, elems, wide, rate = _plan_line(single)
+        single_ms = _time_ms(_kernel_call(single, rhs))
+        whole_ms = _time_ms(lambda: call(rhs))
+        print(f"{name} single device: width {w}, padded plan elements "
+              f"{elems}, wide accesses {wide}, coalesce rate {rate:.2f}, "
+              f"kernel {single_ms:.4f} ms, {'matvec' if k == 1 else 'matmat'}"
+              f" {whole_ms:.4f} ms")
+        strategies = ["even", "nnz", "cost"]
+        t0 = time.perf_counter()
+        shard_bounds(sell, SHARDS, partition="cost2d")
+        cost2d_s = time.perf_counter() - t0
+        if cost2d_s < COST2D_LIMIT_S:
+            strategies.append("cost2d")
+        ran = "run" if cost2d_s < COST2D_LIMIT_S else "not run"
+        print(f"{name}: cost2d bounds at {sell.n_rows} rows in "
+              f"{cost2d_s:.2f}s ({ran}, limit {COST2D_LIMIT_S:.0f}s)")
+        for strategy in strategies:
+            t0 = time.perf_counter()
+            eng = ShardedSpMVEngine(sell, mesh=mesh, n_shards=SHARDS,
+                                    partition=strategy)
+            _reset_launches()
+            got = eng.matvec(rhs) if k == 1 else eng.matmat(rhs)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            _add(checks, launches)
+            built_s = time.perf_counter() - t0
+            kernel = "sell_spmv" if k == 1 else "sell_spmm"
+            if launches[kernel] != SHARDS:
+                raise AssertionError(f"{strategy}: {launches}")
+            err = _max_err(got, want)
+            sharded_ms = _time_ms(lambda: eng.matvec(rhs) if k == 1
+                                  else eng.matmat(rhs))
+            lines, kernel_sum, padded = [], 0.0, 0
+            for i, shard_eng in enumerate(eng.engines):
+                sw, se, swide, srate = _plan_line(shard_eng)
+                ms = _time_ms(_kernel_call(shard_eng, rhs))
+                kernel_sum += ms
+                padded += se
+                lo, hi = eng.row_ranges[i]
+                lines.append(f"    shard {i}: rows [{lo}, {hi}) width {sw}, "
+                             f"padded plan elements {se}, coalesce rate "
+                             f"{srate:.2f}, kernel {ms:.4f} ms")
+            print(f"{name} {strategy}: {SHARDS} shards planned and run in "
+                  f"{built_s:.1f}s; against single device max abs err "
+                  f"{err:.3e}; padded plan elements {padded} ("
+                  f"{padded / elems:.3f}x the single plan's), shard kernels "
+                  f"{kernel_sum:.4f} ms summed (single {single_ms:.4f}), "
+                  f"sharded {'matvec' if k == 1 else 'matmat'} "
+                  f"{sharded_ms:.4f} ms (single {whole_ms:.4f}); imbalance "
+                  f"of the cost model "
+                  f"{eng.partition_info['cost_imbalance']:.3f}")
+            print("\n".join(lines))
+            if strategy == "cost" and k > 1:
+                # degraded mode on the card: shard 1 recomputed by the
+                # reference executor
+                with FaultPlan("shard_fail:after=1,count=1") as plan:
+                    rec = eng.matmat(rhs)
+                rep = plan.report()
+                err = _max_err(rec, got)
+                print(f"{name} {strategy}: shard_fail drill injected "
+                      f"{rep['injected']}, recovered {rep['recovered']} "
+                      f"({eng.recovery_report()['events'][0]['mode']}); "
+                      f"against the fault-free result max abs err {err:.3e}")
+                if rep["injected"] != 1 or rep["unrecovered"]:
+                    raise AssertionError(f"shard_fail drill: {rep}")
+            del eng, got
+        if k > 1:
+            banded_single = single
+        del single, want, rhs, sell
+    # serve --mesh 1,1 with and without chaos; the first batch against the
+    # single-device engine of the same matrix
+    requests = 8
+    argv = ["--spmv", "banded", "--spmv-rows", str(MAIN_ROWS), "--batch",
+            str(MAIN_BATCH), "--requests", str(requests), "--mesh", "1,1",
+            "--partition", "cost"]
+    for extra in ([], ["--chaos", "shard_fail:after=1,count=1"]):
+        out, launches = _serve(argv + extra)
+        _add(served, launches)
+        # One shard, one column group: one launch a batch. Fault-free: the
+        # warm-up and the timed requests. Under chaos the warm-up and its
+        # fault-free parity run launch, and the one injected failure (the
+        # first timed request) is recomputed by the reference executor.
+        rec = out["engine"].recovery_report()
+        injected = out["chaos"]["injected"] if extra else 0
+        want_launches = requests + 1 + (1 - injected if extra else 0)
+        if (launches["sell_spmm"] != want_launches
+                or rec["recovered"] != injected
+                or rec["injected"] != injected or (extra and injected != 1)):
+            raise AssertionError(
+                f"serve --mesh{' --chaos' if extra else ''}: sell_spmm "
+                f"launches {launches['sell_spmm']} (want {want_launches}), "
+                f"recovery {rec['recovered']} of {injected} injected")
+        err = _max_err(out["y"], banded_single.matmat(out["batch"]))
+        gf = out["per_device_gflops"]
+        print(f"serve --mesh{' --chaos' if extra else ''}: "
+              f"{out['spmv_per_s']:.1f} SpMV/s, per device {gf}, "
+              f"{out['engine'].n_shards} shard(s); first batch against the "
+              f"single-device engine max abs err {err:.3e}; launches "
+              f"{launches}; shards recovered {rec['recovered']}")
+        if extra:
+            _chaos_check("serve --mesh shard_fail", out)
+        del out
+    del banded_single
+    # sharded CG (host loop) on the CG matrix of phase 6
+    _fresh_caches()
+    spd = matrices.make_spd(matrices.banded(MAIN_ROWS, 24, 0.8)(seed=0))
+    b = np.random.default_rng(1).standard_normal(MAIN_ROWS).astype(
+        np.float32)
+    eng = ShardedSpMVEngine(spd, mesh=mesh, n_shards=SHARDS)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = solvers.cg(eng, b, tol=1e-6)
+    dt = time.perf_counter() - t0
+    launches = _read_launches()
+    _add(checks, launches)
+    A64 = _csr_on_card(spd, device, torch.float64)
+    b64 = torch.as_tensor(b, device=device).double()
+    x64 = torch.as_tensor(res.x, device=device).double()
+    true = float(torch.linalg.norm(b64 - torch.mv(A64, x64))
+                 / torch.linalg.norm(b64))
+    print(f"sharded cg ({SHARDS} shards, loop={res.loop}): {res.iterations} "
+          f"iterations in {dt:.3f}s (planning included), converged "
+          f"{res.converged}, true residual {true:.3e} in float64 (tol 1e-6); "
+          f"sell_spmv launches {launches['sell_spmv']} for {res.matvecs} "
+          f"matvecs x {SHARDS} shards")
+    if not res.converged or not true <= 2e-6:
+        raise AssertionError(f"sharded cg: {res.iterations} iterations, "
+                             f"true residual {true:.3e}")
+    if launches["sell_spmv"] != res.matvecs * SHARDS:
+        raise AssertionError(f"sharded cg launches {launches}")
+    del eng, A64, spd
+    _fresh_caches()
+    return served, checks
+
+
 def main():
     import torch
 
@@ -1404,22 +1797,37 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    smi = environment_and_build()
-    worst = kernels_against_plain(device)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed(1, environment_and_build)
+    worst = timed(2, kernels_against_plain, device)
     # Every served path runs with the counts set to 0 just before and read
     # just after; the kernels line adds up the served paths. The check and
-    # timing runs of phases 6 and 7 are counted apart.
+    # timing runs of phases 6, 7, 9 and 10 are counted apart.
     served, checks = {}, {}
-    out, served["3 serve --spmv + matvec"] = main_path(device, smi)
-    rows = times(out, smi)
+    out, served["3 serve --spmv + matvec"] = timed(3, main_path, device, smi)
+    rows = timed(4, times, out, smi)
     del out
-    served["5 serve --paged"] = paged_path(device, smi)
+    served["5 serve --paged"] = timed(5, paged_path, device, smi)
     rows["sell_spmv"], err, served["6 serve --solve"], checks[
-        "6 extra solves"] = solver_path(device, smi)
+        "6 extra solves"] = timed(6, solver_path, device, smi)
     worst["sell_spmv"] = max(worst["sell_spmv"], err)
-    served["7 serve --stream"], checks["7 checks and timing"] = stream_path(
-        device, smi)
-    served["8 serve --schedule-cache/--chaos"] = store_and_chaos(device, smi)
+    served["7 serve --stream"], checks["7 checks and timing"] = timed(
+        7, stream_path, device, smi)
+    served["8 serve --schedule-cache/--chaos"] = timed(
+        8, store_and_chaos, device, smi)
+    served["9 serve --tune"], checks["9 measured searches and checks"], \
+        errs = timed(9, tuner_path, device, smi)
+    for name, err in errs.items():
+        worst[name] = max(worst[name], err)
+    served["10 serve --mesh (--chaos)"], checks["10 sharded engine and cg"] \
+        = timed(10, sharded_path, device, smi)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")
@@ -1432,7 +1840,8 @@ def main():
              launches=launches[name], max_abs_err=worst[name], **rows[name])
         for name in KERNELS
     ]
-    print(f"\nsmoke finished in {time.perf_counter() - t_start:.1f}s")
+    print(f"\nsmoke finished in {time.perf_counter() - t_start:.1f}s; "
+          f"seconds by phase {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

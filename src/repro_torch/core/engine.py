@@ -40,6 +40,7 @@ import dataclasses
 import hashlib
 import os
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple, Union
 
@@ -54,8 +55,8 @@ from .coalescer import BlockSchedule, META_BYTES_PACKED, \
 from .formats import CSRMatrix, SELLMatrix
 from .perfmodel import DEFAULT_HW, HWConfig, matmat_spmv_perf, spmv_perf, \
     streaming_spmv_perf
-from .runtime import Pending, Staged, normalize_to_sell, pad_width, \
-    resolve_device, stage_async
+from .runtime import Pending, Staged, normalize_to_sell, \
+    on_compute_stream, pad_width, resolve_device, stage_async
 
 BACKENDS = ("reference", "cuda", "auto")
 DEFAULT_WINDOW = 256
@@ -641,6 +642,13 @@ class SpMVEngine:
         n_rows, n_out = sell.n_rows, stream.shape[0]
         _matmat_fused = None
         _matmat_ref = None
+        # The executors reach the engine's values through a weak reference:
+        # closures over `self` would make a cycle, and a dropped engine's
+        # device memory would wait for the garbage collector.
+        engine = weakref.ref(self)
+
+        def plan_values(dtype: torch.dtype) -> torch.Tensor:
+            return engine().plan_values(dtype)
 
         if self.backend_resolved == "cuda":
             from repro_torch.kernels import ops
@@ -661,14 +669,14 @@ class SpMVEngine:
             k_tile = self.k_tile
 
             def _matvec(x: torch.Tensor) -> torch.Tensor:
-                y = ops.sell_spmv(None, self.plan_values(x.dtype), x,
+                y = ops.sell_spmv(None, plan_values(x.dtype), x,
                                   plan=plan, **kw)
                 return y[:n_rows]
 
             if self.matmat_mode_resolved == "fused":
 
                 def _matmat_fused(X: torch.Tensor) -> torch.Tensor:
-                    Y = ops.sell_spmm(None, self.plan_values(X.dtype), X,
+                    Y = ops.sell_spmm(None, plan_values(X.dtype), X,
                                       plan=plan, k_tile=k_tile, **kw)
                     return Y[:n_rows]
 
@@ -676,7 +684,7 @@ class SpMVEngine:
                 # The per-column baseline: one matvec per right-hand side.
                 if X.shape[1] == 0:
                     dtype = torch.promote_types(
-                        self.plan_values(X.dtype).dtype, X.dtype
+                        plan_values(X.dtype).dtype, X.dtype
                     )
                     return torch.zeros((n_rows, 0), dtype=dtype,
                                        device=X.device)
@@ -691,7 +699,7 @@ class SpMVEngine:
                     x[:, None], sched, n_out=n_out
                 )
                 g = gathered[:, 0].reshape(n_slices, W_plan, H)[:, :W]
-                va = self.plan_values(x.dtype)[:, :W]
+                va = plan_values(x.dtype)[:, :W]
                 # Width reduction through the padding-invariant tree.
                 y = _width_tree_sum(va * g, _runtime_one(x))
                 return y.reshape(-1)[:n_rows]
@@ -705,7 +713,7 @@ class SpMVEngine:
                                        device=X.device)
                 gathered = schedule_gather_reference(X, sched, n_out=n_out)
                 g = gathered.reshape(n_slices, W_plan, H, k)[:, :W]
-                va = self.plan_values(X.dtype)[:, :W]
+                va = plan_values(X.dtype)[:, :W]
                 y = _width_tree_sum(va[..., None] * g, _runtime_one(X))
                 return y.reshape(-1, k)[:n_rows]
 
@@ -816,14 +824,7 @@ class SpMVEngine:
     def _on_compute_stream(self, staged: Staged) -> torch.Tensor:
         """The staged batch, with the current (compute) stream waiting for
         that batch's copy only."""
-        X = staged.X
-        if X.is_cuda and staged.copied is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(staged.copied)
-            # X was allocated on the copy stream: keep the caching allocator
-            # from handing its memory out before the kernel has read it.
-            X.record_stream(stream)
-        return X
+        return on_compute_stream(staged, self.device)
 
     def finalize(self, pending: Pending) -> torch.Tensor:
         """Wait for this micro-batch's completion event (and nothing queued

@@ -60,7 +60,7 @@ from .engine import (
     stream_digest,
 )
 from .perfmodel import DEFAULT_HW, HWConfig, gather_perf
-from .runtime import resolve_device
+from .runtime import resolve_device, stage_rhs
 
 GATHER_BACKENDS = ("index", "coalesced", "cuda", "auto")
 
@@ -270,10 +270,11 @@ class GatherEngine:
 
     def gather(self, table) -> torch.Tensor:
         """``table[indices]`` through the cached plan. table: `table_shape`,
-        a tensor on the engine's device (a numpy table is staged there);
-        returns (n_indices, row_width) in the table's dtype."""
+        a tensor on the engine's device (a numpy table is staged there, a
+        float64 one as float32, as `jnp.asarray` does); returns (n_indices,
+        row_width) in the table's dtype."""
         if not torch.is_tensor(table):
-            table = torch.as_tensor(np.asarray(table), device=self.device)
+            table = stage_rhs(table, self.device)
         if table.device != self.device:
             raise ValueError(
                 f"gather engine lives on {self.device}, the table on "

@@ -4,8 +4,12 @@
   * Geometry — `normalize_to_sell` (the one CSR->SELL normalization every
     engine entry point shares), `pad_width` (the width padding of the
     width-aware planner), `column_groups`/`microbatch_slices` (contiguous
-    RHS column splits), and `resolve_device` (the device of an engine or a
-    plan: the card unless the caller asks for the CPU).
+    RHS column splits), `resolve_device` (the device of an engine or a
+    plan: the card unless the caller asks for the CPU), and the sharded
+    engine's (data, model) device grid (`DeviceMesh`).
+  * Host batches — `host_tensor` casts a float64 host batch to torch's
+    default dtype where it is staged, as `jnp.asarray` does with x64 off;
+    `stage_async` places a batch on a device.
   * `Executor` — the protocol an execution engine implements: beyond
     `matvec`/`matmat`, ``stage(X)`` (start placing a RHS micro-batch on the
     executor's device), ``dispatch(staged)`` (launch compute, no host sync)
@@ -124,6 +128,30 @@ def microbatch_slices(k: int, microbatch: int) -> List[slice]:
     return [slice(j, min(j + microbatch, k)) for j in range(0, k, microbatch)]
 
 
+@dataclasses.dataclass(eq=False)
+class DeviceMesh:
+    """The sharded engine's device grid, the port's two-axis
+    `jax.sharding.Mesh`: `devices` is a 2-D numpy object array of
+    `torch.device`s, ``devices[i, j]`` on data row ``i`` and model column
+    ``j``. One device may appear more than once (shards round-robin onto
+    it). `launch.mesh` builds them."""
+
+    devices: np.ndarray
+    axis_names = ("data", "model")
+
+    def __post_init__(self) -> None:
+        self.devices = np.asarray(self.devices, dtype=object)
+        if self.devices.ndim != 2:
+            raise ValueError(
+                f"a mesh is a (data, model) grid; got {self.devices.ndim} "
+                f"axes"
+            )
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
 def resolve_device(device=None) -> torch.device:
     """The device of an engine or a plan: ``None`` means the card. A CUDA
     device without a card raises — nothing carries on on the CPU unasked."""
@@ -141,12 +169,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def host_tensor(X) -> torch.Tensor:
+    """A host batch (numpy or array-like) as a CPU tensor, floating data
+    wider than torch's default dtype cast to it: float64 becomes float32, as
+    `jnp.asarray` does with x64 off, so a float64 request computes what it
+    computes in the JAX package. A tensor passes through with its dtype."""
+    if torch.is_tensor(X):
+        return X
+    t = torch.as_tensor(np.asarray(X))
+    default = torch.get_default_dtype()
+    if t.is_floating_point() and t.element_size() > default.itemsize:
+        t = t.to(default)
+    return t
+
+
 def stage_rhs(X, device) -> torch.Tensor:
     """Place a right-hand side (numpy array or tensor) on `device`. A host
-    numpy batch is copied; a tensor already there passes through."""
-    if torch.is_tensor(X):
-        return X.to(device)
-    return torch.as_tensor(np.asarray(X), device=device)
+    numpy batch is copied (through `host_tensor`); a tensor passes through
+    with its dtype."""
+    return host_tensor(X).to(device)
 
 
 def parse_stream_spec(spec: str) -> Dict[str, int]:
@@ -211,7 +252,8 @@ class Pending:
 @runtime_checkable
 class Executor(Protocol):
     """What the streaming layer (and any serving loop) requires of an
-    execution engine; `SpMVEngine` implements it. The contract is
+    execution engine; `SpMVEngine` and `dist.ShardedSpMVEngine` implement it.
+    The contract is
 
         finalize(dispatch(stage(X))) == matmat(X)   (bit for bit)
 
@@ -252,7 +294,7 @@ def stage_async(X, device: torch.device, copy_stream=None) -> Staged:
         copied = torch.cuda.Event()
         copied.record(torch.cuda.current_stream(device))
         return Staged(X, copied)
-    host = X if torch.is_tensor(X) else torch.as_tensor(np.asarray(X))
+    host = host_tensor(X)
     if not host.is_pinned():
         pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
         pinned.copy_(host)
@@ -265,6 +307,26 @@ def stage_async(X, device: torch.device, copy_stream=None) -> Staged:
         dev.copy_(host, non_blocking=True)
         copied.record()
     return Staged(dev, copied, start, host)
+
+
+def proper_slice(sl: slice, k: int) -> bool:
+    """True when `sl` selects a strict subset of the k source columns. An
+    identity slice stages the caller's batch itself; a proper slice is a
+    strided view that staging packs into a buffer of its own."""
+    return (sl.stop - sl.start) < k
+
+
+def on_compute_stream(staged: Staged, device: torch.device) -> torch.Tensor:
+    """The staged batch, with `device`'s current (compute) stream waiting
+    for that batch's copy only. No host sync."""
+    X = staged.X
+    if X.is_cuda and staged.copied is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(staged.copied)
+        # X was allocated on the copy stream: keep the caching allocator
+        # from handing its memory out before the kernel has read it.
+        X.record_stream(stream)
+    return X
 
 
 class PinnedRing:
@@ -408,10 +470,11 @@ class _InflightEntry:
 
 
 def _host_tensor(X) -> Optional[torch.Tensor]:
-    """A host batch as a CPU tensor (None for a tensor on the card)."""
-    if torch.is_tensor(X):
-        return None if X.is_cuda else X
-    return torch.from_numpy(np.asarray(X))
+    """A host batch as a CPU tensor (`host_tensor`; None for a tensor on
+    the card)."""
+    if torch.is_tensor(X) and X.is_cuda:
+        return None
+    return host_tensor(X)
 
 
 class StreamingExecutor:
@@ -730,8 +793,7 @@ class StreamingExecutor:
             )
         k = int(X.shape[1])
         slices = microbatch_slices(k, self.microbatch) if k else []
-        dtype = X.dtype if torch.is_tensor(X) else \
-            torch.from_numpy(X[:0]).dtype
+        dtype = host_tensor(X[:0]).dtype
         handle = StreamHandle(self, k, len(slices), dtype)
         with self._cv:
             self._submitted.append(handle)

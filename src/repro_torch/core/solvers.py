@@ -22,8 +22,9 @@ Three loops, selected by ``loop=``:
   the oracle. ``while`` and ``python`` agree bit for bit (the same
   arithmetic in the same order).
 - ``"host"`` — a numpy loop through `Executor.matvec`, for executors
-  without a device matvec (`runtime.StreamingExecutor`). Sharded operators
-  are not ported yet (ROADMAP A10) and raise.
+  without a device matvec (`runtime.StreamingExecutor`,
+  `dist.ShardedSpMVEngine`; cg's dot products on a sharded operator are
+  reduced per shard on its own device).
 
 A replayed graph reads the buffers it was captured with, so every solve
 copies its own starting state — b, x0, the tolerance, the damping — into
@@ -405,18 +406,26 @@ def _cg_device(ex, b, *, tol, maxiter, x0, trace, mode) -> SolveResult:
 
 
 def _host_matvec_and_dot(ex) -> Callable[[np.ndarray], Tuple[np.ndarray, float]]:
-    """p -> (A@p as host array, <p, A@p>)."""
-    if getattr(ex, "matvec_parts", None) is not None:
-        raise NotImplementedError(
-            f"{type(ex).__name__} is a sharded operator; the sharded engine "
-            f"is not ported yet (ROADMAP A10)"
-        )
+    """p -> (A@p as host array, <p, A@p>). On a `ShardedSpMVEngine` the dot
+    is reduced over the grid's data axis: each shard's partial runs on its
+    own device against its placed copy of p, and only the scalars meet on
+    the host."""
+    parts_fn = getattr(ex, "matvec_parts", None)
+    if parts_fn is None:
+        def mv_dot(p: np.ndarray):
+            Ap = _host(ex.matvec(p))
+            return Ap, float(np.dot(p, Ap))
+        return mv_dot
 
-    def mv_dot(p: np.ndarray):
-        Ap = _host(ex.matvec(p))
-        return Ap, float(np.dot(p, Ap))
+    def mv_dot_sharded(p: np.ndarray):
+        parts = parts_fn(p)
+        partials = [
+            torch.dot(placed[lo:hi], part) for part, placed, (lo, hi) in parts
+        ]  # each partial computed on its shard's device
+        Ap = np.concatenate([_host(part) for part, _, _ in parts])
+        return Ap, float(sum(float(d) for d in partials))
 
-    return mv_dot
+    return mv_dot_sharded
 
 
 def _cg_host(ex, b, *, tol, maxiter, x0, trace) -> SolveResult:

@@ -13,6 +13,14 @@ synchronous result, its SpMV/s and the perf model's overlap prediction.
 ``--schedule-cache DIR`` keeps plans in the persistent store
 (`core.schedule_store`, the JAX package's file format);
 ``--assert-warm-cache`` exits non-zero unless the process planned nothing.
+``--tune [model|measure]`` picks the plan knobs with `core.tune.autotune`
+first (winners persist under ``--tune-cache DIR``, so a repeat serve runs
+zero trials). ``--mesh SPEC`` serves through `core.dist.ShardedSpMVEngine`
+(row shards over the mesh's ``data`` axis, RHS columns over ``model``;
+``--partition`` picks the shard boundaries) and reports the partition's
+imbalance, one line per shard and per-device throughput; it composes with
+``--stream``, ``--schedule-cache``, ``--assert-warm-cache`` and ``--chaos
+shard_fail:...`` (a failed shard is recomputed by the reference executor).
 
 ``--spmv FAMILY --solve cg|pagerank|jacobi|power`` serves an iterative
 solver (`core.solvers`) over the family's matrix (cg/jacobi make it SPD with
@@ -154,32 +162,82 @@ def serve_spmv(args) -> Dict[str, object]:
 
     gen = _SPMV_MATRICES[args.spmv](args.spmv_rows)
     csr = gen(np.random.default_rng(args.seed))
+    out: Dict[str, object] = {"csr": csr}
+    # Plan knobs: CLI defaults, unless the autotuner picks them. The tuned
+    # cols_per_chunk implies the kernels' window, so an explicit --window is
+    # dropped in favor of the derived one when tuning. As in the JAX
+    # package's serve, the winner's value_dtype is not applied.
+    knobs = dict(window=args.window, block_rows=args.block_rows)
+    if args.tune:
+        from repro_torch.core.tune import autotune
+
+        t0 = time.time()
+        tuned = autotune(
+            csr, k=args.batch, backend=args.backend, mode=args.tune,
+            cache_dir=args.tune_cache, device=args.device,
+        )
+        tune_s = time.time() - t0
+        print(
+            f"spmv-tune: cols_per_chunk={tuned.cols_per_chunk} "
+            f"block_rows={tuned.block_rows} k_tile={tuned.k_tile} "
+            f"packed={tuned.packed} buffer_depth={tuned.buffer_depth} "
+            f"(mode={tuned.mode}, source={tuned.source}, "
+            f"trials={tuned.trials}, cost={tuned.cost:.3g}, "
+            f"{tune_s:.3f}s)"
+        )
+        knobs = dict(
+            window=None,
+            block_rows=tuned.block_rows,
+            cols_per_chunk=tuned.cols_per_chunk,
+            k_tile=tuned.k_tile,
+            packed=bool(tuned.packed),
+            buffer_depth=tuned.buffer_depth,
+        )
+        out.update(tuned=tuned, tune_s=tune_s)
     t0 = time.time()
-    engine = get_engine(
-        csr, backend=args.backend, window=args.window,
-        block_rows=args.block_rows, device=args.device,
-        cache_dir=args.schedule_cache,
-    )
-    # Forces the (lazy) schedule build; k= folds the matmat prediction in.
-    rep = engine.plan_report(k=args.batch if args.batch > 1 else None)
-    plan_s = time.time() - t0
-    print(
-        f"spmv-serve: {args.spmv} {rep['n_rows']}x{rep['n_cols']} "
-        f"nnz_padded={rep['nnz_padded']} planned in {plan_s:.3f}s "
-        f"(schedule_cached={rep['schedule_cached']})"
-    )
-    print(
-        f"  backend: {rep['backend']} -> {rep['backend_resolved']} on "
-        f"{rep['device']} (cols_per_chunk={rep['cols_per_chunk']}, "
-        f"plan_width={rep['plan_width']}, "
-        f"matmat={rep['matmat_mode']}, k_tile={rep['k_tile']})"
-    )
-    print(
-        f"  plan: window={rep['window']} block_rows={rep['block_rows']} "
-        f"max_warps={rep['max_warps']} "
-        f"wide_accesses={rep['wide_accesses']} "
-        f"coalesce_rate={rep['coalesce_rate']:.2f}"
-    )
+    if args.mesh:
+        from repro_torch.core.dist import ShardedSpMVEngine
+        from repro_torch.launch.mesh import parse_mesh_spec
+
+        engine = ShardedSpMVEngine(
+            csr,
+            mesh=parse_mesh_spec(args.mesh, device=args.device),
+            backend=args.backend,
+            partition=args.partition,
+            cache_dir=args.schedule_cache,
+            **knobs,
+        )
+        # Forces every shard's schedule build; k= folds the matmat
+        # amortization prediction into the same report pass.
+        rep = engine.plan_report(k=args.batch if args.batch > 1 else None)
+        plan_s = time.time() - t0
+        _print_sharded_plan(args, rep, plan_s)
+    else:
+        engine = get_engine(
+            csr, backend=args.backend, device=args.device,
+            cache_dir=args.schedule_cache, **knobs,
+        )
+        # Forces the (lazy) schedule build; k= folds the matmat prediction in.
+        rep = engine.plan_report(k=args.batch if args.batch > 1 else None)
+        plan_s = time.time() - t0
+        print(
+            f"spmv-serve: {args.spmv} {rep['n_rows']}x{rep['n_cols']} "
+            f"nnz_padded={rep['nnz_padded']} planned in {plan_s:.3f}s "
+            f"(schedule_cached={rep['schedule_cached']})"
+        )
+        print(
+            f"  backend: {rep['backend']} -> {rep['backend_resolved']} on "
+            f"{rep['device']} (cols_per_chunk={rep['cols_per_chunk']}, "
+            f"plan_width={rep['plan_width']}, "
+            f"matmat={rep['matmat_mode']}, k_tile={rep['k_tile']})"
+        )
+        print(
+            f"  plan: window={rep['window']} block_rows={rep['block_rows']} "
+            f"max_warps={rep['max_warps']} "
+            f"wide_accesses={rep['wide_accesses']} "
+            f"coalesce_rate={rep['coalesce_rate']:.2f}"
+        )
+    out.update(engine=engine, report=rep)
     if args.batch > 1:
         mm = rep["matmat"]
         pred = mm["perf"]["pack256"]
@@ -228,8 +286,7 @@ def serve_spmv(args) -> Dict[str, object]:
     # warm the path outside the timed loop
     y_first = engine.matmat(batches[0])
     _sync(engine.device)
-    out: Dict[str, object] = {"engine": engine, "csr": csr, "batches": batches,
-                              "batch": batches[0], "y": y_first}
+    out.update(batches=batches, batch=batches[0], y=y_first)
     if faults.active_plan() is not None:
         # Chaos parity: the same batch with injection suspended is the
         # fault-free oracle; recovery must be bit-identical on the reference
@@ -298,6 +355,17 @@ def serve_spmv(args) -> Dict[str, object]:
                    stream_seconds=dt_stream,
                    stream_spmv_per_s=spmvs / max(dt_stream, 1e-12),
                    stream_pred=stream_pred, staging=staging)
+    if args.mesh:
+        out["per_device_gflops"] = _per_device_throughput(args, engine, csr,
+                                                          dt)
+        rec = engine.recovery_report()
+        print(f"  recovery: recovered={rec['recovered']} "
+              f"injected={rec['injected']}")
+        if rec["recovered"] != rec["injected"]:
+            raise SystemExit(
+                f"--mesh: {rec['recovered'] - rec['injected']} shard(s) were "
+                f"recomputed after a failure that was not injected"
+            )
     stats = schedule_cache_stats()
     print(f"  schedule cache: {stats}")
     out.update(plan_s=plan_s, cache_stats=stats)
@@ -517,6 +585,67 @@ def _gather_store_drill(cache, backend: str, cache_dir: str) -> str:
     return healed
 
 
+def _print_sharded_plan(args, rep, plan_s: float) -> None:
+    """The sharded engine's plan report: mesh, partition and its imbalance,
+    one line per shard."""
+    cached = [s["schedule_cached"] for s in rep["shards"]]
+    print(
+        f"spmv-serve: {args.spmv} {rep['n_rows']}x{rep['n_cols']} "
+        f"nnz_padded={rep['nnz_padded']} planned in {plan_s:.3f}s "
+        f"(schedules_cached={sum(bool(c) for c in cached)}"
+        f"/{len(cached)})"
+    )
+    print(
+        f"  mesh: data={rep['mesh']['data']} model={rep['mesh']['model']}"
+        f" ({rep['n_devices']} devices), {rep['n_shards']} row shards, "
+        f"backend {rep['backend']} -> {rep['backend_resolved']}"
+    )
+    print(
+        f"  plan: block_rows={rep['block_rows']} "
+        f"wide_accesses={rep['wide_accesses']} "
+        f"coalesce_rate={rep['coalesce_rate']:.2f}"
+    )
+    part = rep["partition"]
+    imb = part["imbalance"]
+    print(
+        f"  partition: {part['strategy']} "
+        f"imbalance={imb['ratio']:.3f} "
+        f"(max={imb['max_shard_cycles']:.0f} / "
+        f"mean={imb['mean_shard_cycles']:.0f} model cycles/shard)"
+    )
+    for s in rep["shards"]:
+        print(
+            f"    shard {s['shard']} [{s['device_str']}]: rows "
+            f"[{s['rows'][0]}, {s['rows'][1]}) width={s['width']} "
+            f"window={s['window']} "
+            f"wide_accesses={s['wide_accesses']} "
+            f"coalesce_rate={s['coalesce_rate']:.2f} "
+            f"cached={s['schedule_cached']}"
+        )
+
+
+def _per_device_throughput(args, engine, csr, dt: float) -> Dict[str, float]:
+    """Each grid device owns one (row shard, column group) block of every
+    batch; its share of the real FLOPs (the shard's rows of csr.nnz) over
+    the synchronous serving time is its rate."""
+    from repro_torch.core.dist import device_str
+
+    per_dev: Dict[str, float] = {}
+    for blk in engine.placement(args.batch):
+        lo, hi = blk["rows"]
+        nnz_shard = int(csr.indptr[hi]) - int(csr.indptr[lo])
+        c0, c1 = blk["cols"]
+        key = device_str(blk["device"])
+        per_dev[key] = per_dev.get(key, 0.0) + (
+            2.0 * nnz_shard * (c1 - c0) * args.requests)
+    rates = {key: flops / max(dt, 1e-12) / 1e9
+             for key, flops in per_dev.items()}
+    print(f"  per-device throughput ({len(rates)} active devices):")
+    for key in sorted(rates):
+        print(f"    {key} {rates[key]:.3f} GFLOP/s")
+    return rates
+
+
 def run(args) -> Dict[str, object]:
     """Serve the mode the flags select (``--spmv`` [``--solve``] or ``--arch
     --paged``); with ``--chaos`` under that fault plan, gated on injection,
@@ -627,6 +756,37 @@ def build_parser() -> argparse.ArgumentParser:
         help="where the plan and the execution live",
     )
     ap.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="shard --spmv serving over a device mesh: 'data,model' "
+        "auto-factors all visible devices, '4,2' pins explicit (data, "
+        "model) sizes (with --device cpu any size, repeating the CPU); row "
+        "slices shard over data, RHS columns over model "
+        "(core.dist.ShardedSpMVEngine)",
+    )
+    ap.add_argument(
+        "--partition", default="auto",
+        choices=("auto", "even", "nnz", "cost", "cost2d"),
+        help="row-shard partition strategy for --mesh "
+        "(core.partition.shard_bounds): 'even' splits slices uniformly, "
+        "'nnz' balances padded nnz, 'cost' balances the perf-model shard "
+        "cost (straggler-aware; what 'auto' resolves to), 'cost2d' adds a "
+        "column-segment grid to the objective",
+    )
+    ap.add_argument(
+        "--tune", nargs="?", const="model", choices=("model", "measure"),
+        default=None,
+        help="autotune (cols_per_chunk, block_rows, k_tile) for this matrix "
+        "and batch width before serving (core.tune.autotune): 'model' "
+        "scores candidates with the fused-matmat cycle model, 'measure' "
+        "times real matmats; winners persist content-addressed (see "
+        "--tune-cache) so repeat serves run zero trials",
+    )
+    ap.add_argument(
+        "--tune-cache", default=None, metavar="DIR",
+        help="persistent tuner cache directory (default: $REPRO_TUNE_CACHE, "
+        "falling back to the schedule cache directory)",
+    )
+    ap.add_argument(
         "--stream", default=None, metavar="SPEC",
         help="also serve the --spmv batches through the streaming pipeline "
         "(core.runtime.StreamingExecutor): 'depth=D,microbatch=B' (either "
@@ -646,7 +806,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--chaos", default=None, metavar="SPEC",
         help="run the selected mode under deterministic fault injection "
         "(core.faults spec, e.g. 'store_read:rate=1,count=1;"
-        "dispatch_timeout:after=1,count=1'); exits nonzero unless at least "
+        "dispatch_timeout:after=1,count=1' or, with --mesh, "
+        "'shard_fail:after=1,count=1'); exits nonzero unless at least "
         "one fault was injected, every injected fault recovered, and parity "
         "with the fault-free oracle held",
     )

@@ -672,3 +672,91 @@ def test_solve_whose_capture_fails_raises(cuda):
     with pytest.raises(RuntimeError, match="could not capture"):
         solvers.jacobi(HostSyncing(), b, loop="while")
     assert solvers.jacobi(HostSyncing(), b, loop="python").converged
+
+
+def test_float64_host_input_runs_through_the_kernel_as_float32(cuda):
+    """ROADMAP C12: a float64 numpy right-hand side is staged as float32
+    (what `jnp.asarray` makes of it) and launches the kernels, with the
+    float32 input's result bit for bit."""
+    csr = CASES["banded"]()
+    X = np.random.default_rng(33).standard_normal((csr.n_cols, 8))
+    eng = SpMVEngine(csr, device=cuda)
+    ops.sell_spmv_cuda.launches = ops.sell_spmm_cuda.launches = 0
+    y, Y = eng.matvec(X[:, 0]), eng.matmat(X)
+    assert ops.sell_spmv_cuda.launches == ops.sell_spmm_cuda.launches == 1
+    assert y.dtype == Y.dtype == torch.float32
+    X32 = X.astype(np.float32)
+    assert torch.equal(y, eng.matvec(X32[:, 0]))
+    assert torch.equal(Y, eng.matmat(X32))
+
+
+@pytest.mark.parametrize("partition", ["even", "nnz", "cost"])
+def test_sharded_engine_on_one_card_matches_single_device(cuda, partition):
+    """Four shards round-robined onto one card: every block launches the
+    kernels, and matmat / matvec agree with the single-device engine within
+    1e-5 + 1e-5·|y| (each shard pads to its own width, so the kernels sum
+    in another order)."""
+    from repro_torch.core.dist import ShardedSpMVEngine
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    csr = matrices.powerlaw(20000, 12, skew=2.0)(seed=34)
+    X = np.random.default_rng(35).standard_normal(
+        (csr.n_cols, 64)).astype(np.float32)
+    sharded = ShardedSpMVEngine(csr, mesh=parse_mesh_spec("1,1"),
+                                n_shards=4, partition=partition)
+    single = SpMVEngine(csr, device=cuda)
+    assert sharded.device == cuda and sharded.backend_resolved == "cuda"
+    ops.sell_spmv_cuda.launches = ops.sell_spmm_cuda.launches = 0
+    Y, y = sharded.matmat(X), sharded.matvec(X[:, 0])
+    torch.cuda.synchronize()
+    assert ops.sell_spmm_cuda.launches == ops.sell_spmv_cuda.launches == 4
+    _close(Y, single.matmat(X))
+    _close(y, single.matvec(X[:, 0]))
+    parts = sharded.matvec_parts(X[:, 0])
+    assert all(p.device == cuda and xd.device == cuda for p, xd, _ in parts)
+    widths = [s["width"] for s in sharded.plan_report()["shards"]]
+    assert max(widths) > min(widths)
+
+
+def test_sharded_shard_fail_recovers_on_card(cuda):
+    from repro_torch.core.dist import ShardedSpMVEngine
+    from repro_torch.core.faults import FaultPlan
+
+    csr = CASES["banded"]()
+    X = np.random.default_rng(36).standard_normal(
+        (csr.n_cols, 16)).astype(np.float32)
+    sharded = ShardedSpMVEngine(csr, n_shards=3)
+    want = sharded.matmat(X)
+    with FaultPlan("shard_fail:after=1,count=1") as plan:
+        got = sharded.matmat(X)
+    assert plan.report()["unrecovered"] == 0
+    assert sharded.recovery_report()["injected"] == 1
+    _close(got, want)
+
+
+def test_measure_search_over_four_candidates_on_card(cuda):
+    """Measure mode times four geometries on the card in CUDA events and
+    hands the winner's engine over; it agrees with the plain version."""
+    from repro_torch.core import tune
+    from repro_torch.kernels.sell_spmm import sell_spmm_plain
+
+    tune.clear_tune_cache()
+    csr = CASES["banded"]()
+    space = {"cols_per_chunk": (4, 8), "block_rows": (4, 8), "k_tile": (8,),
+             "packed": (1,), "buffer_depth": (2,),
+             "value_dtype": ("native",)}
+    log = []
+    eng, plan = tune.get_tuned_engine(csr, k=32, mode="measure",
+                                      space=space, rounds=2, trial_log=log)
+    assert plan.backend == "cuda" and plan.trials == 8
+    assert len(log) == 4 and all(t.error is None and t.us > 0 for t in log)
+    assert plan.cost == min(t.us for t in log)
+    assert (eng.cols_per_chunk, eng.block_rows) == (plan.cols_per_chunk,
+                                                    plan.block_rows)
+    X = torch.as_tensor(np.random.default_rng(37).standard_normal(
+        (csr.n_cols, 32)).astype(np.float32), device=cuda)
+    want = sell_spmm_plain(None, eng.plan_values(torch.float32), X,
+                           plan=eng.device_plan,
+                           cols_per_chunk=eng.cols_per_chunk,
+                           block_rows=eng.block_rows)[:csr.n_rows]
+    _close(eng.matmat(X), want)

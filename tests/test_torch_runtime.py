@@ -292,3 +292,42 @@ def test_geometry_helpers_and_stream_spec_equal_repro():
     for bad in ("depth=0", "bogus=3", "depth", "depth=x"):
         with pytest.raises(ValueError, match="stream"):
             parse_stream_spec(bad)
+
+
+def test_float64_host_batches_stage_as_float32_like_repro():
+    """ROADMAP C12: a float64 numpy right-hand side (or table) is staged as
+    float32, as `jnp.asarray` makes it with x64 off, so the port returns
+    `repro`'s float32 result bit for bit; a float64 tensor keeps its
+    dtype."""
+    from repro.core.gather_engine import GatherEngine as JGather
+    from repro_torch.core.gather_engine import GatherEngine
+    from repro_torch.core.runtime import host_tensor
+
+    dense = _dense(96, 80, 0.2, 21)
+    eng = SpMVEngine(csr_to_sell(dense_to_csr(dense), slice_height=8),
+                     backend="reference", device="cpu")
+    jeng = JEngine(j_csr_to_sell(j_dense_to_csr(dense), slice_height=8),
+                   backend="reference")
+    X = np.random.default_rng(5).standard_normal((80, 7))
+    assert X.dtype == np.float64
+    cases = [
+        ("matvec", eng.matvec(X[:, 0]), jeng.matvec(X[:, 0])),
+        ("matmat", eng.matmat(X), jeng.matmat(X)),
+        ("stream", StreamingExecutor(eng, microbatch=3, depth=2).matmat(X),
+         jruntime.StreamingExecutor(jeng, microbatch=3, depth=2).matmat(X)),
+    ]
+    for name, ours, theirs in cases:
+        assert ours.dtype == torch.float32, name
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    assert torch.equal(cases[1][1], eng.matmat(X.astype(np.float32)))
+    table = np.random.default_rng(6).standard_normal((50, 6))
+    idx = np.random.default_rng(7).integers(0, 50, 300).astype(np.int32)
+    got = GatherEngine(table.shape, idx, window=32, device="cpu").gather(
+        table)
+    want = np.asarray(JGather(table.shape, idx, window=32).gather(table))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert host_tensor(torch.ones(2, dtype=torch.float64)).dtype == \
+        torch.float64
+    assert host_tensor(np.ones(2, np.float16)).dtype == torch.float16
+    assert host_tensor(np.ones(2, np.int64)).dtype == torch.int64

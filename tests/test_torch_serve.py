@@ -310,3 +310,120 @@ def test_serve_cli_solve_and_gate_exit_codes():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert bad.returncode == 1 and "did not converge" in bad.stderr
+
+
+# --tune / --tune-cache, --mesh / --partition and shard_fail chaos
+
+
+def test_serve_tune_model_cold_then_warm(tmp_path, capsys):
+    from repro_torch.core.tune import clear_tune_cache
+
+    clear_tune_cache()
+    argv = ["--spmv", "banded", "--spmv-rows", "512", "--batch", "8",
+            "--requests", "2", "--tune", "--tune-cache", str(tmp_path)]
+    cold = serve.run(_parse(argv))
+    clear_tune_cache()  # a new process: the winner comes from the file
+    clear_engine_cache()
+    clear_schedule_cache()
+    warm = serve.run(_parse(argv))
+    text = capsys.readouterr().out
+    assert (cold["tuned"].source, cold["tuned"].trials) == ("search", 216)
+    assert (warm["tuned"].source, warm["tuned"].trials) == ("disk", 0)
+    assert "mode=model, source=search, trials=216" in text
+    assert "mode=model, source=disk, trials=0" in text
+    for out in (cold, warm):
+        eng, t = out["engine"], out["tuned"]
+        assert (eng.cols_per_chunk, eng.block_rows, eng.buffer_depth) == (
+            t.cols_per_chunk, t.block_rows, t.buffer_depth)
+    assert torch.equal(cold["y"], warm["y"])
+    assert [n for n in os.listdir(tmp_path) if n.startswith("tune-")]
+
+
+@pytest.mark.parametrize("partition", ["auto", "even", "nnz", "cost",
+                                       "cost2d"])
+@pytest.mark.parametrize("mesh", ["1,1", "2,1"])
+def test_serve_mesh_in_process(mesh, partition, capsys):
+    argv = ["--spmv", "powerlaw", "--spmv-rows", "700", "--batch", "6",
+            "--requests", "2", "--mesh", mesh, "--partition", partition]
+    out = serve.run(_parse(argv))
+    text = capsys.readouterr().out
+    eng, rep = out["engine"], out["report"]
+    n_data = int(mesh[0])
+    assert eng.n_shards == n_data == len(rep["shards"])
+    strategy = "cost" if partition == "auto" else partition
+    assert f"partition: {strategy} imbalance=" in text
+    assert f"mesh: data={n_data} model=1" in text
+    assert text.count("    shard ") == n_data
+    assert "per-device throughput (1 active devices)" in text
+    assert list(out["per_device_gflops"]) == ["cpu:0"]
+    single = SpMVEngine(out["csr"], backend="reference", device="cpu")
+    assert torch.equal(out["y"], single.matmat(out["batch"]))
+
+
+def test_serve_mesh_composes_with_stream_and_the_store(tmp_path, capsys):
+    argv = ["--spmv", "banded", "--spmv-rows", "600", "--batch", "8",
+            "--requests", "2", "--mesh", "2,1", "--stream",
+            "depth=2,microbatch=3", "--schedule-cache", str(tmp_path)]
+    cold = serve.run(_parse(argv))
+    assert cold["cache_stats"]["built"] == 2
+    assert cold["stream_err"] == 0.0
+    clear_engine_cache()
+    clear_schedule_cache()
+    warm = serve.run(_parse(argv + ["--assert-warm-cache"]))
+    text = capsys.readouterr().out
+    assert warm["cache_stats"]["built"] == 0
+    assert "schedules_cached=2/2" in text
+    assert torch.equal(warm["y"], cold["y"])
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_serve_mesh_chaos_shard_fail_recovers(backend, capsys):
+    argv = ["--spmv", "powerlaw", "--spmv-rows", "700", "--batch", "4",
+            "--requests", "2", "--mesh", "2,1", "--backend", backend,
+            "--chaos", "shard_fail:after=1,count=1"]
+    out = serve.run(_parse(argv))
+    text = capsys.readouterr().out
+    rep = out["chaos"]
+    assert rep["injected"] == 1 and rep["unrecovered"] == 0
+    assert rep["sites"]["shard_fail"]["recovered"] == 1
+    assert "chaos: all injected faults recovered" in text
+    assert "recovery: recovered=1 injected=1" in text
+    # the second shard of the first batch failed and was recomputed
+    (ev,) = out["engine"].recovery_report()["events"]
+    assert ev["shard"] == 1 and ev["injected"]
+    assert out["chaos_err"] <= (0.0 if backend == "reference" else 1e-5)
+
+
+def test_serve_mesh_exits_on_recovery_not_injected(monkeypatch):
+    """A shard recomputed after a failure nobody injected fails the serve:
+    its SpMV/s would not be the kernels'."""
+    from repro_torch.core.dist import ShardedSpMVEngine
+
+    monkeypatch.setattr(
+        ShardedSpMVEngine, "recovery_report",
+        lambda self: {"events": [{"injected": False}], "recovered": 1,
+                      "injected": 0})
+    argv = ["--spmv", "banded", "--spmv-rows", "300", "--batch", "2",
+            "--requests", "1", "--mesh", "2,1"]
+    with pytest.raises(SystemExit, match="not injected"):
+        serve.run(_parse(argv))
+
+
+def test_serve_cli_mesh_chaos_exits_zero():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--spmv",
+         "banded", "--spmv-rows", "400", "--batch", "4", "--requests", "2",
+         "--mesh", "2,1", "--partition", "nnz", "--device", "cpu",
+         "--chaos", "shard_fail:after=1,count=1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "shard_fail: events=" in proc.stdout
+    assert "chaos: all injected faults recovered" in proc.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--spmv",
+         "banded", "--spmv-rows", "400", "--mesh", "3", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert bad.returncode != 0 and "two positive ints" in bad.stderr

@@ -221,15 +221,21 @@ def test_operator_and_loop_errors():
         solvers.pagerank(eng.sell)
 
     class Sharded:
+        """A sharded operator: cg's host loop takes its dots per part."""
         n_rows = n_cols = N
+        parts_calls = 0
 
         def matvec(self, x):
             return eng.matvec(x)
 
         def matvec_parts(self, x):
-            raise AssertionError("not reached")
+            Sharded.parts_calls += 1
+            xt = torch.as_tensor(np.asarray(x, np.float32))
+            return [(eng.matvec(xt)[:5], xt, (0, 5)),
+                    (eng.matvec(xt)[5:], xt, (5, N))]
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        solvers.cg(Sharded(), b)
+    res = solvers.cg(Sharded(), b)
+    assert res.loop == "host" and res.converged
+    assert Sharded.parts_calls == res.iterations
     np.testing.assert_array_equal(solvers._diag_of(A),
                                   solvers._diag_of(eng))
