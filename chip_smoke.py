@@ -127,9 +127,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sharded CG (the host loop) on phase 6's CG matrix, converged within
    2 * tol true residual.
 
-Every served path (the serve runs of phases 3 and 5-10; phase 3's matvec)
-is driven with the launch counts set to 0 just before it and read just
-after; the JSON line before the card line sums them per kernel (one entry
+11. Generation with the model stack: (a) ``serve --arch llama3-8b --batch 8
+   --prompt-len 512 --tokens 32`` in process at full width and depth (32
+   layers, d_model 4096, GQA 32/8, d_ff 14336, vocab 128256, bf16; ~16 GB
+   of seeded weights drawn on the card), `Runtime()` (the index
+   embedding); (b) the same prompts through `generate` with
+   ``Runtime(embed_backend="cuda")`` (the `coalesced_gather` kernel on the
+   128256 x 4096 bf16 table: 8 KB rows, the TMA bulk path), in turns with
+   the index embedding (index, cuda, cuda, index): every step's logits
+   equal bitwise, the tokens equal serve's, 33 gather launches (1 prefill
+   + 32 decode steps); the host ms of planning each step's ids and the
+   kernel's ms; the kernel at the prefill stream (8 x 512 ids) beside its
+   byte bound, its plain version and `torch.index_select`; torch.profiler
+   over one decode step; (c) the prefill (one multi-token `decode_step`)
+   of every prefix of 1 x 16 tokens against token-by-token decode, both
+   through a float32 cache, within ``2e-2 + 2e-2 * |ref|`` (the paths
+   differ only in layer 0's bf16 q/k/v projections; the f32 cache promotes
+   the rest to float32); (d) every other family at full width, its depth
+   cut to one repeating unit (printed on its line): logits finite, the
+   prefill through `decode_step` against `forward` at the last position
+   (within 2e-2 + 2e-2 * |ref| in bf16 for the attention families; zamba2
+   and xlstm, whose two paths are the recurrent and the chunked scan, on a
+   float32 copy within 1e-3 + 1e-3 * |ref|, the bf16 difference printed),
+   and `dispatch_report` on the card for deepseek-v2-lite and
+   llama4-maverick.
+
+Every served path (the serve runs of phases 3 and 5-11; phase 3's matvec;
+phase 11's first cuda-embedding run) is driven with the launch counts set
+to 0 just before it and read just after; the JSON line before the card line sums them per kernel (one entry
 per kernel; `sell_spmv`'s times are at the solver shape whose served solves
 launched it most). The launches of phase 6's extra solves, phase 7's checks
 and timing runs, phase 9's measured searches and phase 10's engine runs and
@@ -193,13 +218,14 @@ def _phase(name):
     print(f"\n== {name}", flush=True)
 
 
-def _max_err(got, want):
-    """Max |got - want|; raises when any element breaks the tolerance."""
+def _max_err(got, want, tol=TOL):
+    """Max |got - want|; raises when any element breaks the tolerance
+    ``tol + tol * |want|``."""
     err = (got.float() - want.float()).abs()
-    bad = err > TOL + TOL * want.float().abs()
+    bad = err > tol + tol * want.float().abs()
     if bool(bad.any()):
         raise AssertionError(
-            f"{int(bad.sum())} elements beyond 1e-5 + 1e-5*|ref| "
+            f"{int(bad.sum())} elements beyond {tol:g} + {tol:g}*|ref| "
             f"(max abs err {float(err.max()):.3e})"
         )
     return float(err.max()) if err.numel() else 0.0
@@ -904,13 +930,20 @@ def paged_step_breakdown(out, device, repeats=3):
     print(f"  the gather kernel's own time: {kernel_ms:.3f} ms a step "
           f"({2 * L} launches), {kernel_ms / parts['whole step'] * 100:.1f}% "
           f"of the step")
+    _profile_busy(step, "one step")
+
+
+def _profile_busy(fn, what):
+    """torch.profiler over one call of `fn`: the device's busy share of the
+    wall time and its time by kernel."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -932,7 +965,7 @@ def paged_step_breakdown(out, device, repeats=3):
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
-    print(f"  torch.profiler over one step: device busy {busy / 1e3:.3f} ms "
+    print(f"  torch.profiler over {what}: device busy {busy / 1e3:.3f} ms "
           f"of {wall_us / 1e3:.3f} ms wall ({busy / wall_us * 100:.1f}%), "
           f"{len(spans)} device events; by name (ms): " + "; ".join(
               f"{name[:60]} {t / 1e3:.3f}" for name, t in top))
@@ -1783,6 +1816,375 @@ def sharded_path(device, smi):
     return served, checks
 
 
+# Phase 11: generation with the model stack at llama3-8b's full width and
+# depth (32 layers, d_model 4096, GQA 32/8, d_ff 14336, vocab 128256, bf16).
+GEN_ARGV = ["--arch", "llama3-8b", "--batch", "8", "--prompt-len", "512",
+            "--tokens", "32"]
+GEN_STEPS = 32
+GEN_SHAPE = (32, 4096, 32, 8, 14336, 128256, "bfloat16")
+# Prefill against token-by-token decode, both through a float32 cache: the
+# paths differ only in layer 0's bf16 q/k/v projections (one GEMM of 16
+# rows against 16 of one row; a bf16 step is 2^-8 of the value): the cache
+# promotes everything after layer 0's attention to float32.
+TOKEN_TOL = 2e-2
+# Every other family at full width, depth cut to one repeating unit.
+FAMILY_CUTS = {
+    "smollm-360m": dict(n_layers=1),
+    "tinyllama-1.1b": dict(n_layers=1),
+    "qwen2-1.5b": dict(n_layers=1),
+    "deepseek-v2-lite-16b": dict(n_layers=2),  # the lead dense + one MoE
+    "llama4-maverick-400b-a17b": dict(n_layers=2),  # one unit: MoE, dense
+    "zamba2-1.2b": dict(n_layers=6),  # 6 Mamba2 + the shared block
+    "xlstm-1.3b": dict(n_layers=8),  # 7 mLSTM + 1 sLSTM
+    "whisper-large-v3": dict(n_layers=1, encoder=1),
+    "llama-3.2-vision-11b": dict(n_layers=5),  # 4 self + 1 cross-attention
+}
+FAMILY_BATCH, FAMILY_SEQ = 2, 16
+# `repro`'s own prefill/decode test tolerance; the attention families run
+# the same kernels on both paths. The recurrent ones (zamba2's Mamba2,
+# xlstm's mLSTM/sLSTM) do not: a prefill through `decode_step` takes the
+# recurrent scan, `forward` the chunked one, the same float32 sums in
+# another order, rounded to bf16 at other points (the chunked mLSTM rounds
+# its numerator and normalizer before dividing, as in `repro`). They are
+# held on a float32 copy of the same weights at FLOAT32_TOL; the bf16
+# difference is printed.
+FAMILY_TOL = 2e-2
+FLOAT32_TOL = 1e-3
+
+
+def _finite(name, *tensors):
+    import torch
+
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise AssertionError(f"{name}: logits that are not finite")
+
+
+def _recording(model, logits, tokens, seconds):
+    """`model` whose decode_step keeps each step's input ids, its logits and
+    its host seconds (synchronised)."""
+    import torch
+
+    step = model.decode_step
+
+    def decode_step(p, toks, cache, rt):
+        t0 = time.perf_counter()
+        out, cache = step(p, toks, cache, rt)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        tokens.append(toks.clone())
+        logits.append(out.clone())
+        return out, cache
+
+    return dataclasses.replace(model, decode_step=decode_step)
+
+
+def generation_path(device, smi):
+    """Phase 11: (a) serve --arch llama3-8b (index embedding), (b) the same
+    prompts through `generate` with the hand-written gather as the embedding,
+    (c) prefill against token-by-token decode, (d) the other families at
+    full width. Returns the launches of (a) and (b) and (b)'s id streams."""
+    import torch
+
+    from repro_torch.core.gather_engine import gather_engine_cache_stats
+    from repro_torch.launch import serve
+    from repro_torch.models import Runtime
+
+    _phase(f"11. generation: serve --arch llama3-8b at full width and depth, "
+           f"the cuda embedding, prefill vs decode, every family ({smi})")
+    _fresh_caches()
+    torch.cuda.reset_peak_memory_stats(device)
+    out, served_a = _serve(GEN_ARGV)
+    cfg, model, params = out["config"], out["model"], out["params"]
+    tokens, batch = out["tokens"], out["batch"]
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.dtype) != GEN_SHAPE:
+        raise AssertionError(f"llama3-8b served at {cfg}")
+    n_params = sum(p.numel() for p in params.parameters())
+    if tuple(tokens.shape) != (int(GEN_ARGV[GEN_ARGV.index("--batch") + 1]),
+                               GEN_STEPS) or not (
+            0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+        raise AssertionError(f"generated {tuple(tokens.shape)}")
+    print(f"(a) {n_params} parameters ({n_params * 2} B of bf16) drawn in "
+          f"{out['init_s']:.2f}s; prefill {out['prefill_ms']:.3f} ms (the "
+          f"process's first), decode {out['decode_ms_per_step']:.3f} ms/step, "
+          f"{out['tok_per_s']:.1f} tok/s batched; peak device memory "
+          f"{torch.cuda.max_memory_allocated(device)} B; launches {served_a}")
+
+    # (a') the index embedding again and (b) the hand-written gather, in
+    # turns (index, cuda, cuda, index), each step's logits recorded: every
+    # run must give the first one's bytes; the first cuda run is (b)
+    runs = []
+    for name, rt in (("index", Runtime()),
+                     ("cuda", Runtime(embed_backend="cuda")),
+                     ("cuda", Runtime(embed_backend="cuda")),
+                     ("index", Runtime())):
+        logits, ids, secs = [], [], []
+        rec = _recording(model, logits, ids, secs)
+        _fresh_caches()
+        _reset_launches()
+        got = serve.generate(rec, params, batch["tokens"],
+                             max_new_tokens=GEN_STEPS, rt=rt)
+        torch.cuda.synchronize()
+        runs.append(dict(name=name, tokens=got, logits=logits, ids=ids,
+                         launches=_read_launches(), secs=secs,
+                         engines=gather_engine_cache_stats()))
+        if not torch.equal(got, tokens):
+            raise AssertionError(f"the {name} embedding generated other "
+                                 f"tokens than serve's")
+        for a, b in zip(runs[0]["logits"], logits):
+            _bytes_equal(b, a)
+        gathers = runs[-1]["launches"]["coalesced_gather"]
+        if gathers != (GEN_STEPS + 1 if name == "cuda" else 0):
+            raise AssertionError(f"the {name} embedding launched the gather "
+                                 f"{gathers} times")
+    served_b, engines = runs[1]["launches"], runs[1]["engines"]
+    if engines["size"] > 32:
+        raise AssertionError(f"the gather engine cache grew to {engines}")
+
+    def times(name):
+        secs = [r["secs"] for r in runs if r["name"] == name]
+        return ("/".join(f"{s[0] * 1e3:.3f}" for s in secs),
+                float(np.median([t for s in secs for t in s[1:]])) * 1e3)
+
+    (pi, di), (pc, dc) = times("index"), times("cuda")
+    print(f"(b) embed_backend='cuda' and 'index' in turns (index, cuda, "
+          f"cuda, index): every step's logits equal bitwise, tokens equal "
+          f"serve's; launches {served_b}; prefill ms index {pi}, cuda {pc}; "
+          f"decode ms a step (median) index {di:.3f}, cuda {dc:.3f}; gather "
+          f"engines cached after the first cuda run {engines} (an LRU of "
+          f"32)")
+    embedding_plan_times(params.tok.embed, runs[1]["ids"], device)
+    del runs
+    # one warm decode step (index embedding) after a prefill, profiled
+    B, S = batch["tokens"].shape
+    with torch.inference_mode():
+        cache = model.init_cache(B, S + 1, Runtime(), device=device)
+        _, cache = model.decode_step(params, batch["tokens"], cache,
+                                     Runtime())
+        last = tokens[:, :1]
+        _profile_busy(lambda: model.decode_step(params, last, cache,
+                                                Runtime()),
+                      f"one decode step ({B} x 1 tokens, {S} cached)")
+    del cache
+
+    # (c) prefill (one multi-token decode_step) against one-token steps,
+    # at every prefix of 16 tokens, both through a float32 cache
+    rt32 = Runtime(cache_dtype="float32")
+    toks = batch["tokens"][:1, :16]
+    with torch.inference_mode():
+        cache = model.init_cache(1, 16, rt32, device=device)
+        steps = []
+        for t in range(16):
+            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache,
+                                          rt32)
+            steps.append(lg[:, 0])
+        pre = []
+        for t in range(1, 17):
+            lg, _ = model.decode_step(
+                params, toks[:, :t],
+                model.init_cache(1, 16, rt32, device=device), rt32)
+            pre.append(lg[:, 0])
+        fwd, _ = model.forward(params, {"tokens": toks}, rt32)
+    steps, pre = torch.stack(steps, 1), torch.stack(pre, 1)
+    _finite("llama3-8b, 1 x 16 tokens", steps, pre, fwd)
+    err = _max_err(steps, pre, TOKEN_TOL)
+    agree = float((steps.argmax(-1) == pre.argmax(-1)).float().mean())
+    fwd_err = float((fwd - steps).abs().max())
+    fwd_agree = float((fwd.argmax(-1) == steps.argmax(-1)).float().mean())
+    print(f"(c) 1 x 16 tokens, cache float32: prefill of every prefix "
+          f"against token-by-token decode max abs err {err:.3e} (tolerance "
+          f"{TOKEN_TOL} + {TOKEN_TOL}*|ref|; logits max |ref| "
+          f"{float(pre.abs().max()):.3f}), argmax agreement {agree:.3f}; "
+          f"the bf16 forward (no cache) against the steps max abs err "
+          f"{fwd_err:.3e}, argmax agreement {fwd_agree:.3f}")
+    del out, model, params, cache, fwd
+    _fresh_caches()
+
+    families(device)
+    return served_a, served_b
+
+
+def embedding_plan_times(table, streams, device):
+    """(b)'s embedding, step by step, on fresh caches: the host ms of
+    planning each step's ids (engine, schedule, plan; synchronised) and the
+    kernel's ms (CUDA events); at the prefill stream (8 x 512 ids, 8 KB
+    rows) the kernel beside its byte bound, its plain version and
+    `torch.index_select`."""
+    import torch
+
+    from repro_torch.core.gather_engine import get_gather_engine
+    from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
+        coalesced_gather_plain
+
+    plan_ms, kernel_ms = [], []
+    for ids in streams:
+        _fresh_caches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = get_gather_engine(tuple(table.shape), ids.reshape(-1),
+                                window=256, block_rows=8, backend="cuda",
+                                device=device)
+        plan = eng.device_plan
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        kw = dict(window=256, block_rows=8, plan=plan, n_out=eng.n_indices)
+        kernel_ms.append(_time_ms(lambda: coalesced_gather_cuda(
+            table, None, **kw), iters=10))
+    print(f"  embedding per step (host ms to plan the ids; kernel ms): "
+          f"prefill {plan_ms[0]:.3f}; {kernel_ms[0]:.4f}; decode steps "
+          f"median {float(np.median(plan_ms[1:])):.3f}; "
+          f"{float(np.median(kernel_ms[1:])):.4f} (range "
+          f"{min(plan_ms[1:]):.3f}-{max(plan_ms[1:]):.3f} ms to plan)")
+    ids = streams[0].reshape(-1)
+    _fresh_caches()
+    eng = get_gather_engine(tuple(table.shape), ids, window=256,
+                            block_rows=8, backend="cuda", device=device)
+    kw = dict(window=256, block_rows=8, plan=eng.device_plan,
+              n_out=eng.n_indices)
+    idx = ids.long()
+    _bytes_equal(coalesced_gather_cuda(table, None, **kw), table[idx])
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = int(torch.unique(idx).numel())
+    nbytes = (distinct + idx.numel()) * row_bytes + idx.numel() * 4
+    row = dict(
+        ms=_time_ms(lambda: coalesced_gather_cuda(table, None, **kw)),
+        plain_ms=_time_ms(lambda: coalesced_gather_plain(table, None, **kw),
+                          iters=5),
+        library_ms=_time_ms(lambda: torch.index_select(table, 0, idx)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    )
+    print(f"  coalesced_gather at the prefill stream ({idx.numel()} ids, "
+          f"{distinct} distinct, rows of {row_bytes} B, table "
+          f"{tuple(table.shape)} {table.dtype}): kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, "
+          f"torch.index_select {row['library_ms']:.4f} ms "
+          f"({row['library_ms'] / row['ms']:.2f}x the kernel's time), bound "
+          f"{row['bound_ms']:.4f} ms (bytes: {nbytes} B, distinct rows read "
+          f"once, the outputs written, the ids) -> "
+          f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound; "
+          f"launches on (b)'s path: {len(streams)}")
+    _fresh_caches()
+
+
+def _cut(cfg, n_layers, encoder=None):
+    if encoder is not None:
+        return dataclasses.replace(cfg, n_layers=n_layers,
+                                   encdec=dataclasses.replace(
+                                       cfg.encdec, n_encoder_layers=encoder))
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _prefill_against_forward_f32(cfg, params, batch):
+    """The prefill-against-forward check of (d) on a float32 copy of the
+    weights, through a float32 cache; returns the max abs error (raises
+    past FLOAT32_TOL)."""
+    import torch
+
+    from repro_torch.models import Runtime, build_model
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [widen(v) for v in tree]
+        return None if tree is None else tree.float()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32)
+    params32 = type(params)(cfg32, widen(params.to_tree()))
+    rt = Runtime(cache_dtype="float32")
+    with torch.inference_mode():
+        fwd, _ = model.forward(params32, batch, rt)
+        cache = model.init_cache(FAMILY_BATCH, FAMILY_SEQ, rt,
+                                 device=params32.device)
+        dec, _ = model.decode_step(params32, batch["tokens"], cache, rt)
+    _finite(f"{cfg.name}, float32", fwd, dec)
+    return _max_err(dec[:, 0], fwd[:, -1], FLOAT32_TOL)
+
+
+def families(device):
+    """(d): every other family at full width, depth cut to one repeating
+    unit: logits finite, the prefill through `decode_step` (the cache)
+    against `forward` (none) at the last position, and `dispatch_report` on
+    the card for the MoE families."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Runtime, build_model, make_input_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import dispatch_report
+
+    rt = Runtime()
+    for name, cut in FAMILY_CUTS.items():
+        full = get_arch(name)
+        cfg = _cut(full, **cut)
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(11)
+        params = model.init(gen, device=device)
+        batch = make_input_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, gen,
+                                 device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fwd, _ = model.forward(params, batch, rt)
+            cache = model.init_cache(FAMILY_BATCH, FAMILY_SEQ + 4, rt,
+                                     device=device)
+            if cfg.family == "audio":
+                cache["enc_out"] = model.extras["encode"](
+                    params, batch["enc_input"], rt)
+            if cfg.family == "vlm":
+                cache["image_embeds"] = batch["image_embeds"]
+            dec, cache = model.decode_step(params, batch["tokens"], cache, rt)
+            nxt, _ = model.decode_step(params, batch["tokens"][:, :1], cache,
+                                       rt)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if tuple(fwd.shape) != (FAMILY_BATCH, FAMILY_SEQ, cfg.vocab_size):
+            raise AssertionError(f"{name}: logits {tuple(fwd.shape)}")
+        _finite(name, fwd, dec, nxt)
+        if cfg.family in ("hybrid", "ssm"):
+            err = float((dec[:, 0] - fwd[:, -1]).abs().max())
+            err32 = _prefill_against_forward_f32(cfg, params, batch)
+            check = (f"{err:.3e} in bf16 (not gated: recurrent against "
+                     f"chunked scan), a float32 copy {err32:.3e} (tolerance "
+                     f"{FLOAT32_TOL} + {FLOAT32_TOL}*|ref|)")
+        else:
+            err = _max_err(dec[:, 0], fwd[:, -1], FAMILY_TOL)
+            check = (f"{err:.3e} (tolerance {FAMILY_TOL} + "
+                     f"{FAMILY_TOL}*|ref|, bf16)")
+        n = sum(p.numel() for p in params.parameters())
+        cut_s = (f"layers {cfg.n_layers} of {full.n_layers}" + (
+            f", encoder {cfg.encdec.n_encoder_layers} of "
+            f"{full.encdec.n_encoder_layers}" if cfg.encdec else ""))
+        print(f"(d) {name}: full width (d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}), {cut_s}; {n} parameters drawn in "
+              f"{init_s:.2f}s; forward + prefill + one step {run_s:.2f}s; "
+              f"prefill vs forward max abs err {check}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(device)} B")
+        if cfg.moe is not None:
+            layer = params.units.pos0[0]
+            with torch.inference_mode():
+                h = L.rmsnorm_apply(layer.ffn_norm, params._embed(
+                    batch["tokens"], rt), cfg.norm_eps)
+                rep = dispatch_report(layer.moe, h, moe=cfg.moe)
+            g = rep["gather"]
+            print(f"    dispatch_report on {h.device}: {rep['assignments']} "
+                  f"assignments to {rep['n_experts']} experts, capacity "
+                  f"{rep['capacity']}, dropped {rep['dropped']}, max load "
+                  f"{rep['max_load']}, imbalance "
+                  f"{rep['load_imbalance']:.2f}; plan {g['n_windows']} "
+                  f"windows, coalesce rate {g['coalesce_rate']:.3f}")
+            if sum(rep["tokens_per_expert"]) != rep["assignments"]:
+                raise AssertionError(f"{name}: dispatch_report {rep}")
+            del layer, h
+        del model, params, batch, fwd, dec, nxt, cache
+        _fresh_caches()
+
+
 def main():
     import torch
 
@@ -1828,6 +2230,9 @@ def main():
         worst[name] = max(worst[name], err)
     served["10 serve --mesh (--chaos)"], checks["10 sharded engine and cg"] \
         = timed(10, sharded_path, device, smi)
+    served["11 serve --arch llama3-8b"], served[
+        "11 generate, embed_backend cuda"] = timed(11, generation_path,
+                                                   device, smi)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")

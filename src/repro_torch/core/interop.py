@@ -1,14 +1,15 @@
 """State carried between the JAX package and this one, as numpy arrays.
 
-For this system the "weights" are the matrix and its coalescer plan, and on
-the serving side the paged KV cache. These helpers rebuild them on the torch
-side from plain arrays (and back), so a matrix, a `BlockSchedule` or a paged
-cache produced by `repro` can be handed to the port's plan lowering, kernels
-and decode path without either package importing the other.
+For this system the "weights" are the matrix and its coalescer plan, on
+the serving side the paged KV cache, and the model stack's parameters. These
+helpers rebuild them on the torch side from plain arrays (and back), so a
+matrix, a `BlockSchedule`, a paged cache or a model's parameters produced by
+`repro` can be handed to the port's plan lowering, kernels, decode path and
+models without either package importing the other.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -99,3 +100,127 @@ def paged_kv_from_arrays(k_pages, v_pages, page_table, lengths, block: int,
         )
     return PagedKV(k_pages=k, v_pages=v, page_table=table, lengths=lens,
                    block=int(block))
+
+
+# The parameter subtrees `repro` stacks on leading axes (`_stack_init`), by
+# family: the number of stacked axes of each (zamba2's and xlstm's units
+# stack twice: units x layers of a unit). The decoder's are every
+# ``units/pos{j}``.
+_STACKED = {
+    "hybrid": {"mamba_units": 2, "mamba_tail": 1},
+    "ssm": {"mlstm": 2, "slstm": 1},
+    "audio": {"enc": 1, "dec": 1},
+    "vlm": {"self_units": 2, "cross": 1},
+}
+
+
+def _stacked_paths(cfg, tree) -> Dict[Tuple[str, ...], int]:
+    if cfg.family in ("dense", "moe"):
+        return {("units", name): 1 for name in tree["units"]}
+    return {(key,): n for key, n in _STACKED[cfg.family].items()
+            if tree.get(key) is not None}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
+def _unstack(tree, levels: int):
+    """A tree stacked on `levels` leading axes -> nested lists of trees."""
+    if levels == 0:
+        return tree
+    n = _first_leaf(tree).shape[0]
+    return [_unstack(_tree_map(lambda a, i=i: a[i], tree), levels - 1)
+            for i in range(n)]
+
+
+def _stack_trees(trees):
+    """Trees of one structure -> one tree of their leaves stacked (numpy)."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in head}
+    if isinstance(head, list):
+        return [_stack_trees([t[i] for t in trees]) for i in range(len(head))]
+    return np.stack(trees)
+
+
+def _restack(items, levels: int):
+    """The inverse of `_unstack` (on numpy leaves)."""
+    if levels == 0:
+        return items
+    return _stack_trees([_restack(t, levels - 1) for t in items])
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _with(tree, path, value):
+    """A shallow copy of `tree` with the subtree at `path` replaced."""
+    out = dict(tree)
+    if len(path) == 1:
+        out[path[0]] = value
+    else:
+        out[path[0]] = _with(tree[path[0]], path[1:], value)
+    return out
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError:  # numpy alone has no bfloat16: widen (lossless)
+            return t.float().numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def model_params_from_numpy(cfg, tree, device=None):
+    """The port's model module for `cfg` (a `models.transformer` family,
+    on `device`, default the card) holding the values of `repro`'s
+    parameter pytree `tree` given as numpy (``jax.tree.map(np.asarray,
+    params)``). Every subtree `repro` stacks on leading axes is unstacked
+    into one module per layer: the decoder's ``units/pos{j}[u]``, zamba2's
+    ``mamba_units[u][i]``, ``mamba_tail[i]`` and its one ``shared`` block,
+    xlstm's ``mlstm[u][i]`` and ``slstm[u]``, whisper's ``enc[i]`` and
+    ``dec[i]``, the VLM's ``self_units[u][i]`` and ``cross[u]``. numpy
+    bfloat16 leaves (ml_dtypes) arrive as torch bfloat16, bit for bit."""
+    from repro_torch.models.transformer import FAMILY_CLASSES
+
+    device = resolve_device(device)
+    for path, levels in _stacked_paths(cfg, tree).items():
+        tree = _with(tree, path, _unstack(_at(tree, path), levels))
+    tensors = _tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+    return FAMILY_CLASSES[cfg.family](cfg, tensors)
+
+
+def model_params_to_numpy(cfg, module):
+    """The inverse of `model_params_from_numpy`: `repro`'s pytree layout
+    (stacked subtrees restacked) with numpy leaves; bfloat16 leaves as
+    ml_dtypes' bfloat16 where it is installed, else widened to float32."""
+    tree = _tree_map(_tensor_to_numpy, module.to_tree())
+    for path, levels in _stacked_paths(cfg, tree).items():
+        tree = _with(tree, path, _restack(_at(tree, path), levels))
+    return tree

@@ -35,21 +35,31 @@ K/V/q from --seed, no weights): per-layer paged KV caches
 (`models.paged_kv`) whose page gathers run through the shared
 `core.gather_engine` plan cache (the `coalesced_gather` kernel on the card),
 with per-layer gather plan reports, tokens/s, a paged-vs-dense parity gate
-(1e-5) and a zero-steady-state-plan-builds gate. Generation with the model
-stack (``--arch`` without ``--paged``) is not ported yet. With ``--chaos``
-and ``--schedule-cache`` one layer's gather plan makes a round trip through
-the store.
+(1e-5) and a zero-steady-state-plan-builds gate. With ``--chaos`` and
+``--schedule-cache`` one layer's gather plan makes a round trip through the
+store.
+
+`python -m repro_torch.launch.serve --arch llama3-8b --batch 8 --prompt-len
+512 --tokens 32` generates with the model stack (`models.build_model`,
+seeded random weights drawn on the card): `generate` prefills the prompts
+through one multi-token `decode_step`, then decodes ``--tokens`` greedy
+steps, and the report gives ``generated (B, T) in … s (… tok/s batched)``
+with the prefill's ms and the decode's ms per step. ``--reduced`` serves the
+config's CPU-sized variant, e.g. ``--arch tinyllama-1.1b --reduced --tokens
+8 --device cpu``.
 
 ``--chaos SPEC`` runs the selected mode under deterministic fault injection
 (`core.faults`) and exits non-zero unless a fault was injected, every
 injected fault recovered, and parity with the fault-free result held.
 
-``--device cpu`` runs either mode on the CPU (the reference executors under
-``--backend auto``).
+``--device cpu`` runs any mode on the CPU (the reference executors under
+``--backend auto``); without it every mode runs on the card, and raises
+where there is none.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict
 
@@ -549,6 +559,106 @@ def serve_paged(args) -> Dict[str, object]:
     }
 
 
+def generate(model, params, prompt, *, max_new_tokens: int, rt,
+             extras_batch=None, greedy: bool = True, generator=None):
+    """Prefill the prompt (one multi-token `decode_step`), then decode
+    `max_new_tokens` steps, each appending the last token, as `repro`'s
+    `generate` does. `params` is the family module `model.init` (or
+    `core.interop.model_params_from_numpy`) returned; the prompt (B, S)
+    moves to its device. Greedy takes the argmax; otherwise each token is
+    drawn from the softmax with `generator` (on the params' device).
+    Returns the (B, max_new_tokens) int32 tokens."""
+    import torch
+
+    B, S = prompt.shape
+    device = params.device
+    prompt = prompt.to(device=device, dtype=torch.int32)
+    with torch.inference_mode():
+        cache = model.init_cache(B, S + max_new_tokens, rt, device=device)
+        if model.cfg.family == "audio":
+            cache["enc_out"] = model.extras["encode"](
+                params, extras_batch["enc_input"], rt)
+        if model.cfg.family == "vlm":
+            cache["image_embeds"] = extras_batch["image_embeds"]
+        logits, cache = model.decode_step(params, prompt, cache, rt)
+        outs = []
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        for _ in range(max_new_tokens):
+            outs.append(tok)
+            logits, cache = model.decode_step(params, tok, cache, rt)
+            if greedy:
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            else:
+                tok = torch.multinomial(torch.softmax(logits[:, -1], -1), 1,
+                                        generator=generator)
+            tok = tok.to(torch.int32)
+    return torch.cat(outs, dim=1)
+
+
+def serve_generate(args) -> Dict[str, object]:
+    """Batched generation with the model stack: seeded random weights
+    (``--seed``) and prompts (``--seed`` + 1) on the device, `generate` with
+    `repro`'s default `Runtime()`, and the report line of `repro`'s serve
+    plus the prefill's ms and the decode's ms per step (host clock,
+    synchronised after each step). Returns the model, its params, the
+    batch, the tokens and the times."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import resolve_device
+    from repro_torch.models import Runtime, build_model, make_input_batch
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    model = build_model(cfg)
+    rt = Runtime()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                        device=dev)
+    batch = make_input_batch(
+        cfg, args.batch, args.prompt_len,
+        torch.Generator(device=dev).manual_seed(args.seed + 1), device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    print(f"generate: {args.arch} ({'reduced' if args.reduced else 'full'}) "
+          f"layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype} batch={args.batch} "
+          f"prompt={args.prompt_len} tokens={args.tokens} device={dev}; "
+          f"weights and prompts drawn in {init_s:.2f}s")
+
+    step_s = []
+    step = model.decode_step
+
+    def timed_step(p, tokens, cache, rt_):
+        t = time.perf_counter()
+        out = step(p, tokens, cache, rt_)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    timed = dataclasses.replace(model, decode_step=timed_step)
+    t0 = time.perf_counter()
+    out = generate(timed, params, batch["tokens"], max_new_tokens=args.tokens,
+                   rt=rt, extras_batch=batch)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    total = args.batch * args.tokens
+    prefill_ms = step_s[0] * 1e3
+    decode_ms = float(np.mean(step_s[1:])) * 1e3 if len(step_s) > 1 else 0.0
+    print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s batched); prefill {prefill_ms:.3f} ms, "
+          f"decode {decode_ms:.3f} ms/step over {len(step_s) - 1} steps")
+    print(out[0][:16].tolist())
+    return {
+        "config": cfg, "model": model, "params": params, "batch": batch,
+        "rt": rt, "tokens": out, "seconds": dt, "tok_per_s": total / dt,
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "init_s": init_s,
+    }
+
+
 def _gather_store_drill(cache, backend: str, cache_dir: str) -> str:
     """Chaos drill of the paged path: decode plans in memory only, so one
     layer's gather plan makes a round trip through the self-healing store to
@@ -647,8 +757,8 @@ def _per_device_throughput(args, engine, csr, dt: float) -> Dict[str, float]:
 
 
 def run(args) -> Dict[str, object]:
-    """Serve the mode the flags select (``--spmv`` [``--solve``] or ``--arch
-    --paged``); with ``--chaos`` under that fault plan, gated on injection,
+    """Serve the mode the flags select (``--spmv`` [``--solve``] or ``--arch``
+    [``--paged``]); with ``--chaos`` under that fault plan, gated on injection,
     recovery and parity (the plan's report lands in the result as
     ``"chaos"``)."""
     if args.chaos is None:
@@ -683,25 +793,20 @@ def run(args) -> Dict[str, object]:
 
 def _run_mode(args) -> Dict[str, object]:
     if args.spmv and args.arch:
-        raise ValueError("pass either --spmv or --arch --paged, not both")
+        raise ValueError("pass either --spmv or --arch, not both")
     if args.solve and not args.spmv:
         raise ValueError("--solve requires --spmv to pick the matrix family")
     if args.spmv:
         return serve_solve(args) if args.solve else serve_spmv(args)
     if not args.arch:
-        raise ValueError("pass --spmv FAMILY or --arch ID --paged")
-    if not args.paged:
-        raise NotImplementedError(
-            "generation is not ported yet (ROADMAP A13); --arch serves "
-            "paged decode with --paged"
-        )
-    return serve_paged(args)
+        raise ValueError("pass --spmv FAMILY or --arch ID")
+    return serve_paged(args) if args.paged else serve_generate(args)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="serve batched SpMV or paged decode through the "
-        "plan-once engines"
+        description="serve batched SpMV, solvers, generation or paged "
+        "decode through the plan-once engines"
     )
     ap.add_argument(
         "--spmv", choices=sorted(_SPMV_MATRICES),
@@ -709,8 +814,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--arch",
-        help="architecture id (repro_torch.configs); with --paged, serve "
-        "paged decode at its widths",
+        help="architecture id (repro_torch.configs): generate with its "
+        "model, or with --paged serve paged decode at its widths",
     )
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced (CPU-sized) variant")
@@ -722,7 +827,10 @@ def build_parser() -> argparse.ArgumentParser:
         "plan builds",
     )
     ap.add_argument("--prompt-len", type=int, default=16,
-                    help="prompt tokens prefilled per request for --paged")
+                    help="prompt tokens prefilled per request")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="tokens generated per request by --arch without "
+                    "--paged")
     ap.add_argument(
         "--decode-steps", type=int, default=16,
         help="decode steps for --paged (tokens generated per request)",

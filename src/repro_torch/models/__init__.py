@@ -1,2 +1,12 @@
-"""Model stack of the port: so far the paged KV cache (`paged_kv`) and the
-attention primitives it is checked against (`layers`)."""
+"""Model stack of the port: the ten architectures' serving side (layers,
+MoE, Mamba2, xLSTM, the five family modules, `build_model`), and the paged
+KV cache (`paged_kv`)."""
+from .model import (  # noqa: F401
+    Model,
+    build_model,
+    count_params,
+    input_specs,
+    lm_loss,
+    make_input_batch,
+)
+from .transformer import Runtime  # noqa: F401

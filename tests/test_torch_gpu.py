@@ -760,3 +760,116 @@ def test_measure_search_over_four_candidates_on_card(cuda):
                            cols_per_chunk=eng.cols_per_chunk,
                            block_rows=eng.block_rows)[:csr.n_rows]
     _close(eng.matmat(X), want)
+
+
+# ---------------------------------------------------------------------------
+# The model stack on the card
+# ---------------------------------------------------------------------------
+
+MODEL_TOL = 1e-4  # float32 on two devices: GEMM order, exp/log ulps
+
+
+def _model_pair(name, cuda, dtype=None):
+    """A reduced arch's model, its seeded parameters on the CPU and the
+    same values on the card, and a seeded batch on each."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model, make_input_batch
+
+    cfg = ARCHS[name].reduced()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = make_input_batch(cfg, 2, 24, torch.Generator().manual_seed(1),
+                             device="cpu")
+    return cfg, model, cpu, card, batch, {k: v.to(cuda)
+                                          for k, v in batch.items()}
+
+
+def _tol_close(got, want, tol=MODEL_TOL):
+    err = (got.cpu().float() - want.float()).abs()
+    assert torch.all(err <= tol + tol * want.float().abs()), float(err.max())
+
+
+@pytest.mark.parametrize("name", [
+    "deepseek-v2-lite-16b", "llama-3.2-vision-11b", "llama3-8b",
+    "llama4-maverick-400b-a17b", "qwen2-1.5b", "smollm-360m",
+    "tinyllama-1.1b", "whisper-large-v3", "xlstm-1.3b", "zamba2-1.2b"])
+def test_reduced_models_on_card_match_the_cpu(cuda, name):
+    """Forward logits, a prefill and a decode step through a float32 cache,
+    and greedy tokens: the card against the port on the CPU, float32."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Runtime
+
+    cfg, model, cpu, card, batch, batch_c = _model_pair(name, cuda)
+    rt = Runtime(cache_dtype="float32")
+    with torch.inference_mode():
+        want, _ = model.forward(cpu, batch, rt)
+        got, _ = model.forward(card, batch_c, rt)
+        assert got.is_cuda
+        _tol_close(got, want)
+        caches = []
+        for params, b, dev in ((cpu, batch, "cpu"), (card, batch_c, cuda)):
+            c = model.init_cache(2, 30, rt, device=dev)
+            if cfg.family == "audio":
+                c["enc_out"] = model.extras["encode"](params, b["enc_input"],
+                                                      rt)
+            if cfg.family == "vlm":
+                c["image_embeds"] = b["image_embeds"]
+            caches.append(c)
+        for toks in (batch["tokens"], batch["tokens"][:, :1]):
+            want, caches[0] = model.decode_step(cpu, toks, caches[0], rt)
+            got, caches[1] = model.decode_step(card, toks.to(cuda),
+                                               caches[1], rt)
+            _tol_close(got, want)
+    want = generate(model, cpu, batch["tokens"][:, :8], max_new_tokens=4,
+                    rt=rt, extras_batch=batch)
+    got = generate(model, card, batch_c["tokens"][:, :8], max_new_tokens=4,
+                   rt=rt, extras_batch=batch_c)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", [256, 4096])
+def test_cuda_embedding_equals_index_bitwise(cuda, width):
+    """`embed_backend="cuda"` launches the gather once a lookup and gives
+    ``table[ids]``'s bytes on a bf16 table: 512 B rows (the unit path) and
+    8 KB rows (llama3-8b's, the TMA bulk path)."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn((5000, width), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    ids = torch.randint(0, 5000, (4, 300), generator=gen, device=cuda)
+    before = coalesced_gather_cuda.launches
+    got = L.embedding_apply({"embed": table}, ids, backend="cuda")
+    torch.cuda.synchronize()
+    assert coalesced_gather_cuda.launches == before + 1
+    want = L.embedding_apply({"embed": table}, ids, backend="index")
+    assert got.shape == (4, 300, width)
+    assert torch.equal(_bytes(got), _bytes(want))
+
+
+def test_cuda_embedding_model_logits_equal_index_bitwise(cuda):
+    """A bf16 reduced llama through both embeddings on the card: the same
+    logits, bit for bit, and one gather launch a step."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Runtime
+
+    cfg, model, _, card, _, batch = _model_pair("llama3-8b", cuda,
+                                                dtype="bfloat16")
+    with torch.inference_mode():
+        want, _ = model.forward(card, batch, Runtime())
+        before = coalesced_gather_cuda.launches
+        got, _ = model.forward(card, batch, Runtime(embed_backend="cuda"))
+        assert coalesced_gather_cuda.launches == before + 1
+    assert torch.equal(_bytes(got), _bytes(want))
+    before = coalesced_gather_cuda.launches
+    toks = generate(model, card, batch["tokens"], max_new_tokens=3,
+                    rt=Runtime(embed_backend="cuda"))
+    assert coalesced_gather_cuda.launches == before + 4
+    assert torch.equal(toks, generate(model, card, batch["tokens"],
+                                      max_new_tokens=3, rt=Runtime()))

@@ -139,13 +139,73 @@ def test_serve_paged_draws_in_repro_order():
 
 def test_serve_mode_selection():
     parse = serve.build_parser().parse_args
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        serve.run(parse(["--arch", "llama3-8b", "--device", "cpu"]))
+    out = serve.run(parse(["--arch", "llama3-8b", "--reduced", "--tokens",
+                           "2", "--batch", "1", "--device", "cpu"]))
+    assert tuple(out["tokens"].shape) == (1, 2)  # --arch alone generates
     with pytest.raises(ValueError, match="not both"):
-        serve.run(parse(["--spmv", "banded", "--arch", "llama3-8b",
-                         "--paged"]))
+        serve.run(parse(["--spmv", "banded", "--arch", "llama3-8b"]))
     with pytest.raises(ValueError, match="--spmv FAMILY or --arch"):
         serve.run(parse([]))
+
+
+def test_generate_cli_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "tinyllama-1.1b", "--reduced", "--tokens", "8", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "generate: tinyllama-1.1b (reduced) layers=4" in proc.stdout
+    assert "generated (4, 8) in" in proc.stdout
+    assert "tok/s batched); prefill" in proc.stdout
+    assert "ms/step over 8 steps" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "zamba2-1.2b"])
+def test_serve_generate_in_process(arch, capsys):
+    """The served tokens are `generate`'s on the returned weights and
+    prompts (whisper: the encoder's output primes the cache); one prefill
+    and --tokens decode steps are timed; the draws follow --seed."""
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
+            "6", "--tokens", "3", "--device", "cpu", "--seed", "4"]
+    out = serve.run(serve.build_parser().parse_args(argv))
+    text = capsys.readouterr().out
+    assert f"generate: {arch} (reduced)" in text
+    assert "generated (2, 3) in" in text and "over 3 steps" in text
+    assert out["prefill_ms"] > 0 and out["decode_ms_per_step"] > 0
+    assert out["tok_per_s"] > 0
+    again = serve.generate(out["model"], out["params"],
+                           out["batch"]["tokens"], max_new_tokens=3,
+                           rt=out["rt"], extras_batch=out["batch"])
+    assert torch.equal(again, out["tokens"])
+    other = serve.run(serve.build_parser().parse_args(argv[:-1] + ["5"]))
+    assert not torch.equal(other["batch"]["tokens"], out["batch"]["tokens"])
+
+
+def test_generate_samples_with_its_generator():
+    out = serve.run(serve.build_parser().parse_args(
+        ["--arch", "smollm-360m", "--reduced", "--batch", "2", "--tokens",
+         "2", "--device", "cpu"]))
+
+    def sample(seed):
+        return serve.generate(out["model"], out["params"],
+                              out["batch"]["tokens"], max_new_tokens=5,
+                              rt=out["rt"], greedy=False,
+                              generator=torch.Generator().manual_seed(seed))
+
+    a, b = sample(1), sample(1)
+    assert torch.equal(a, b) and a.shape == (2, 5)
+    assert int(a.max()) < out["config"].vocab_size
+
+
+def test_serve_generate_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = serve.build_parser().parse_args(["--arch", "tinyllama-1.1b",
+                                            "--reduced"])
+    assert args.device == "cuda" and args.tokens == 32
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(args)
 
 
 def test_serve_paged_defaults_to_the_card(monkeypatch):
