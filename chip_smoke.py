@@ -151,9 +151,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    float32 copy within 1e-3 + 1e-3 * |ref|, the bf16 difference printed),
    and `dispatch_report` on the card for deepseek-v2-lite and
    llama4-maverick.
+12. Training with the model stack (no kernel of the three runs here: the
+   index embedding, and the cuda gather has no gradient): (a) `train()` in
+   process on tinyllama-1.1b at full width and depth (22 layers, d_model
+   2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch 8 x 512 tokens,
+   ``OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)``, 20 steps: each
+   step's loss, grad_norm and ms, tokens/s and the model-FLOP share
+   ``6 * N_params * tokens/s / 989e12`` (bf16 dense peak) beside the card's
+   power limit, peak device memory; gate: every loss and grad_norm finite,
+   the last loss below the first by more than 0.3; then ``python -m
+   repro_torch.launch.train --arch tinyllama-1.1b --steps 2 --batch 8 --seq
+   512`` in process through its `main`; (b) the card against the CPU on a
+   float32 copy at full width, 2 layers, batch 2 x 64, the same numpy
+   parameters on both (`core.interop`): loss within ``1e-5 * |loss|``,
+   every gradient leaf within ``1e-4 * max|g_cpu| + 1e-6`` (TF32 off); then
+   one `make_update_fn` update at microbatches 2 and one with compression,
+   the loss and the first moment held the same way (compression: at most
+   0.1% of a leaf one int8 step apart, where a scaled gradient sits on a
+   rounding tie); (c) (a)'s step with remat "full" and "dots" against
+   "none": losses within 1e-6 relative, peak memory of each, "full" below
+   "none"; (d) a checkpoint/restart drill at full width, one layer, bf16
+   (~1.75 GB a checkpoint, under ``build/train-ckpt-<pid>``, removed at
+   the end): `run_with_recovery` with ``ckpt_every=2`` over 8 steps, a
+   failure raised once after step 5's update, final parameters against an
+   uninterrupted run (bitwise where the step is deterministic on the card,
+   else within 1e-6 relative: the case is printed), the seconds of a save
+   and a restore, and the port's bf16 checkpoint restored byte for byte;
+   (e) C19: ``embed_backend="cuda"`` (and "auto") under autograd raises
+   NotImplementedError on the card; "coalesced" and "index" give the same
+   loss and embedding gradients within ``1e-6 * max|g|``; (f) every other
+   family at full width with phase 11's cut takes two `make_update_fn`
+   steps with finite losses, gradients and parameters (llama4-maverick is
+   left out: its one unit's parameters, gradients and moments need
+   ~224 GB).
 
 Every served path (the serve runs of phases 3 and 5-11; phase 3's matvec;
-phase 11's first cuda-embedding run) is driven with the launch counts set
+phase 11's first cuda-embedding run; phase 12's training) is driven with the launch counts set
 to 0 just before it and read just after; the JSON line before the card line sums them per kernel (one entry
 per kernel; `sell_spmv`'s times are at the solver shape whose served solves
 launched it most). The launches of phase 6's extra solves, phase 7's checks
@@ -1953,7 +1986,7 @@ def generation_path(device, smi):
           f"decode ms a step (median) index {di:.3f}, cuda {dc:.3f}; gather "
           f"engines cached after the first cuda run {engines} (an LRU of "
           f"32)")
-    embedding_plan_times(params.tok.embed, runs[1]["ids"], device)
+    embedding_plan_times(params.tok.embed.detach(), runs[1]["ids"], device)
     del runs
     # one warm decode step (index embedding) after a prefill, profiled
     B, S = batch["tokens"].shape
@@ -2185,6 +2218,469 @@ def families(device):
         _fresh_caches()
 
 
+# Phase 12: training with the model stack at tinyllama-1.1b's full width
+# and depth (22 layers, d_model 2048, GQA 32/4, d_ff 5632, vocab 32000,
+# bf16), `repro`'s `test_training_loss_decreases` schedule.
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_SHAPE = (22, 2048, 32, 4, 5632, 32000, "bfloat16")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_DROP = 0.3
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
+# (b) the card against the CPU: a float32 copy, 2 layers, 2 x 64 tokens.
+PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ = 2, 2, 64
+LOSS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+REMAT_RTOL = 1e-6
+# (d) the recovery drill: one layer, a failure after step 5's update.
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 2, 5
+DRILL_RTOL = 1e-6
+EMBED_GRAD_RTOL = 1e-6
+# (f) every other family: phase 11's cuts; llama4-maverick's one unit
+# holds 18.7e9 parameters: 224 GB of parameters, gradients and moments.
+TRAIN_FAMILIES = [n for n in FAMILY_CUTS
+                  if n not in (TRAIN_ARCH, "llama4-maverick-400b-a17b")]
+
+
+def _named_cpu(tree):
+    from repro_torch.optim.tree import named_tensors
+
+    return {n: t.detach().float().cpu() for n, t in
+            named_tensors(tree).items()}
+
+
+def _leaves_close(name, got, want, rtol, atol, steps=None):
+    """Every tensor of `got` within ``rtol * max|want| + atol`` of `want`
+    (CPU tensors by name); where `steps` gives each tensor its int8
+    quantization step (its `repro` leaf's max|want| / 127: a stacked leaf
+    shares one scale), at most 0.1% of a tensor may sit one step apart.
+    Returns the worst error relative to its tensor's max."""
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n]
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        bad = err > rtol * scale + atol
+        if bool(bad.any()):
+            if steps is None or float(bad.float().mean()) > 1e-3 or float(
+                    err[bad].max()) > 1.0001 * steps[n] + atol:
+                raise AssertionError(
+                    f"{name}: {n} beyond {rtol:g}*max|ref| + {atol:g} at "
+                    f"{int(bad.sum())} elements (max err "
+                    f"{float(err.max()):.3e}, max|ref| {scale:.3e})")
+            err = err.masked_fill(bad, 0)
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+    return worst
+
+
+def _int8_steps(params, moments):
+    """Each tensor's int8 quantization step in `moments` (CPU tensors by
+    name): its `repro` leaf's largest magnitude / 127."""
+    from repro_torch.optim.tree import leaves
+
+    steps = {}
+    for leaf in leaves(params):
+        top = max(float(moments[n].abs().max()) for n in leaf.names)
+        steps.update({n: top / 127 for n in leaf.names})
+    return steps
+
+
+def _one_update(model, params, batch, tcfg):
+    """One `make_update_fn` update: (loss, first moments as CPU tensors)."""
+    from repro_torch.models import Runtime
+    from repro_torch.optim.compression import init_residual
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.loop import make_update_fn
+
+    update = make_update_fn(model, OptConfig(), Runtime(), tcfg)
+    residual = init_residual(params) if tcfg.grad_compression else None
+    _, opt, _, metrics = update(params, init_opt_state(params), residual,
+                                batch)
+    return float(metrics["loss"]), _named_cpu(opt.mu)
+
+
+def train_full(device, smi):
+    """(a): `train()` at full width and depth, then the launcher's main.
+    Returns the trained parameters, the model and the data config."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = get_arch(TRAIN_ARCH)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.dtype) != TRAIN_SHAPE:
+        raise AssertionError(f"{TRAIN_ARCH} trained at {cfg}")
+    model = build_model(cfg)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = train(model, rt=Runtime(),
+                opt_cfg=OptConfig(lr=1e-3, warmup_steps=5,
+                                  total_steps=TRAIN_STEPS),
+                tcfg=TrainConfig(total_steps=TRAIN_STEPS, log_every=1),
+                data_cfg=data_cfg, device=device)
+    peak = torch.cuda.max_memory_allocated(device)
+    hist = out["history"]
+    for h in hist:
+        print(f"(a) step {h['step']:2d}: loss {h['loss']:.4f}, grad_norm "
+              f"{h['grad_norm']:.4f}, {h['sec'] * 1e3:.1f} ms")
+    values = [v for h in hist for v in (h["loss"], h["grad_norm"])]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(values)):
+        raise AssertionError(f"(a) history {hist}")
+    drop = hist[0]["loss"] - hist[-1]["loss"]
+    if not drop > TRAIN_DROP:
+        raise AssertionError(f"(a) the loss fell by {drop:.4f}, not more "
+                             f"than {TRAIN_DROP}")
+    params = out["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    print(f"(a) {n_params} parameters; loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f} (drop {drop:.4f} > {TRAIN_DROP}); first "
+          f"step {hist[0]['sec'] * 1e3:.1f} ms, later steps median "
+          f"{step_s * 1e3:.1f} ms; {tok_s:.0f} tokens/s; model-FLOP share "
+          f"6*N*tokens/s / {BF16_FLOP_PER_S:.3g} = "
+          f"{6 * n_params * tok_s / BF16_FLOP_PER_S * 100:.2f}% ({smi}); "
+          f"{out['wall_seconds']:.2f} s for {out['steps']} steps; peak "
+          f"device memory {peak} B")
+    del out
+    _fresh_caches()
+    argv = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    print("python -m repro_torch.launch.train " + " ".join(argv),
+          flush=True)
+    cli = launch_train.main(argv)
+    if [h["step"] for h in cli["history"]] != [0, 1] or not all(
+            np.isfinite([h["loss"] for h in cli["history"]])):
+        raise AssertionError(f"launch.train history {cli['history']}")
+    del cli
+    _fresh_caches()
+    return model, params, data_cfg
+
+
+def remat_modes(device, model, params, data_cfg):
+    """(c): one forward and backward of (a)'s model under each remat."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline, device_put_batch
+    from repro_torch.models import Runtime, lm_loss
+    from repro_torch.train.loop import value_and_grad
+
+    batch = device_put_batch(TokenPipeline(data_cfg).batch_at(TRAIN_STEPS),
+                             device)
+    seen = {}
+    for remat in ("none", "full", "dots"):
+        for _ in range(2):  # the second: checkpointing's first call pays
+            _fresh_caches()  # seconds of one-time set-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(
+                lambda p: lm_loss(model, p, batch, Runtime(remat=remat)),
+                params)
+            torch.cuda.synchronize()
+            seen[remat] = (float(loss),
+                           torch.cuda.max_memory_allocated(device),
+                           time.perf_counter() - t0)
+            del grads
+    base = seen["none"][0]
+    for remat, (loss, peak, secs) in seen.items():
+        print(f"(c) remat {remat}: loss {loss:.6f}, peak device memory "
+              f"{peak} B, forward + backward {secs * 1e3:.1f} ms (the "
+              f"second of two)")
+        if abs(loss - base) > REMAT_RTOL * abs(base):
+            raise AssertionError(f"(c) remat {remat} loss {loss} against "
+                                 f"{base}")
+    if not seen["full"][1] < seen["none"][1]:
+        raise AssertionError("(c) remat full does not peak below none")
+
+
+def card_against_cpu(device):
+    """(b) and (e) on a float32 copy at full width, 2 layers."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.interop import model_params_from_numpy, \
+        model_params_to_numpy
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, \
+        device_put_batch
+    from repro_torch.models import Runtime, build_model, lm_loss
+    from repro_torch.train.loop import TrainConfig, value_and_grad
+
+    cfg = dataclasses.replace(_cut(get_arch(TRAIN_ARCH), PARITY_LAYERS),
+                              dtype="float32")
+    model = build_model(cfg)
+    arrays = model_params_to_numpy(cfg, model.init(
+        torch.Generator().manual_seed(5), device="cpu"))
+    batch_np = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PARITY_SEQ,
+        global_batch=PARITY_BATCH)).batch_at(1)
+
+    def on(dev):
+        return (model_params_from_numpy(cfg, arrays, device=dev),
+                device_put_batch(batch_np, dev))
+
+    cpu, card = on("cpu"), on(device)
+    want_loss, want = value_and_grad(
+        lambda p: lm_loss(model, p, cpu[1], Runtime()), cpu[0])
+    got_loss, got = value_and_grad(
+        lambda p: lm_loss(model, p, card[1], Runtime()), card[0])
+    want_loss, got_loss = float(want_loss), float(got_loss)
+    if abs(got_loss - want_loss) > LOSS_RTOL * abs(want_loss):
+        raise AssertionError(f"(b) loss {got_loss} on the card, {want_loss} "
+                             f"on the CPU")
+    worst = _leaves_close("(b) gradients", _named_cpu(got),
+                          _named_cpu(want), GRAD_RTOL, GRAD_ATOL)
+    print(f"(b) float32, d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{PARITY_BATCH} x {PARITY_SEQ} tokens: loss {got_loss:.7f} card, "
+          f"{want_loss:.7f} CPU; gradients: worst leaf error "
+          f"{worst:.3e} of its max|g| (tolerance {GRAD_RTOL:g}*max|g_cpu| + "
+          f"{GRAD_ATOL:g})")
+    del want, got
+    for kw in (dict(microbatches=2), dict(grad_compression=True)):
+        tcfg = TrainConfig(**kw)
+        results = [_one_update(model, *on(dev), tcfg)
+                   for dev in ("cpu", device)]
+        (want_loss, want_mu), (got_loss, got_mu) = results
+        if abs(got_loss - want_loss) > LOSS_RTOL * abs(want_loss):
+            raise AssertionError(f"(b) {kw}: loss {got_loss} against "
+                                 f"{want_loss}")
+        worst = _leaves_close(
+            f"(b) {kw} first moment", got_mu, want_mu, GRAD_RTOL,
+            GRAD_ATOL * 0.1, steps=_int8_steps(cpu[0], want_mu)
+            if tcfg.grad_compression else None)
+        print(f"(b) one update with {kw}: loss {got_loss:.7f} card, "
+              f"{want_loss:.7f} CPU; first moment worst leaf error "
+              f"{worst:.3e} of its max")
+
+    # (e) C19: the gather kernel has no backward
+    params, batch = card
+    for backend in ("cuda", "auto"):
+        try:
+            lm_loss(model, params, batch, Runtime(embed_backend=backend))
+        except NotImplementedError as exc:
+            print(f"(e) embed_backend={backend!r} under autograd on the "
+                  f"card: NotImplementedError ({exc})")
+        else:
+            raise AssertionError(f"(e) embed_backend={backend!r} "
+                                 f"differentiated on the card")
+    grads = {}
+    for backend in ("index", "coalesced"):
+        loss, g = value_and_grad(lambda p: lm_loss(
+            model, p, batch, Runtime(embed_backend=backend)), params)
+        grads[backend] = (float(loss), g.tok.embed.detach().clone())
+        del g
+    (li, gi), (lc, gc) = grads["index"], grads["coalesced"]
+    scale = float(gi.abs().max())
+    err = float((gc - gi).abs().max())
+    if li != lc or err > EMBED_GRAD_RTOL * scale:
+        raise AssertionError(f"(e) coalesced loss {lc} / index {li}, "
+                             f"embedding gradient error {err:.3e} of max "
+                             f"{scale:.3e}")
+    print(f"(e) embed_backend 'coalesced' and 'index' on the card: losses "
+          f"equal ({li:.7f}); embedding gradients max error {err:.3e} "
+          f"(bitwise: {bool(torch.equal(gc, gi))}; tolerance "
+          f"{EMBED_GRAD_RTOL:g}*max|g| = {EMBED_GRAD_RTOL * scale:.3e})")
+
+
+def recovery_drill(device):
+    """(d): run_with_recovery against an uninterrupted run, full width, one
+    layer, bf16; a save and a restore timed; the bf16 checkpoint restored
+    byte for byte."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, \
+        device_put_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.train.checkpoint import restore_latest, \
+        save_checkpoint
+    from repro_torch.train.fault_tolerance import run_with_recovery
+    from repro_torch.train.loop import TrainConfig, make_update_fn
+
+    cfg = _cut(get_arch(TRAIN_ARCH), 1)
+    model = build_model(cfg)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    update = make_update_fn(
+        model, OptConfig(lr=1e-3, warmup_steps=2, total_steps=DRILL_STEPS),
+        Runtime(), TrainConfig())
+
+    def init_state():
+        params = model.init(torch.Generator(device=device).manual_seed(7),
+                            device=device)
+        return {"params": params, "opt": init_opt_state(params)}
+
+    def advance(state, step):
+        batch = device_put_batch(data.batch_at(step), device)
+        update(state["params"], state["opt"], None, batch)
+        return state
+
+    failed = []
+
+    def one_step(state, step):
+        advance(state, step)
+        if step == DRILL_FAIL and not failed:
+            failed.append(step)  # the node dies after its update
+            raise RuntimeError(f"injected failure after step {step}")
+        return state
+
+    whole = init_state()
+    for step in range(DRILL_STEPS):
+        advance(whole, step)
+    torch.cuda.synchronize()
+    root = ROOT / "build" / f"train-ckpt-{os.getpid()}"
+    try:
+        t0 = time.perf_counter()
+        final = run_with_recovery(
+            init_state=init_state, train_one_step=one_step,
+            total_steps=DRILL_STEPS, ckpt_dir=str(root / "drill"),
+            ckpt_every=DRILL_EVERY)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        if failed != [DRILL_FAIL]:
+            raise AssertionError(f"(d) failures {failed}")
+        got, want = named_tensors(final["params"]), \
+            named_tensors(whole["params"])
+        got = {n: t.detach() for n, t in got.items()}
+        want = {n: t.detach() for n, t in want.items()}
+        exact = all(torch.equal(got[n], want[n]) for n in want)
+        worst = max(float((got[n] - want[n]).float().abs().max())
+                    / max(float(want[n].float().abs().max()), 1e-30)
+                    for n in want) if not exact else 0.0
+        if not exact and worst > DRILL_RTOL:
+            raise AssertionError(f"(d) recovered parameters off by {worst:.3e}"
+                                 f" relative")
+        if int(final["opt"].step) != DRILL_STEPS:
+            raise AssertionError(f"(d) optimizer step {final['opt'].step}")
+        n_params = sum(p.numel() for p in final["params"].parameters())
+        print(f"(d) run_with_recovery: {n_params} parameters ({cfg.dtype}, "
+              f"layers 1 of {get_arch(TRAIN_ARCH).n_layers}), {DRILL_STEPS} "
+              f"steps, "
+              f"checkpoint every {DRILL_EVERY}, a failure after step "
+              f"{DRILL_FAIL}'s update, {drill_s:.2f} s; final parameters "
+              + ("bitwise equal to the uninterrupted run's (the step is "
+                 "deterministic on the card)" if exact else
+                 f"within {worst:.3e} relative of the uninterrupted run's "
+                 f"(the step is not bitwise deterministic on the card)"))
+        t0 = time.perf_counter()
+        path = save_checkpoint(root / "saved", DRILL_STEPS - 1, final)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        fresh = init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, fresh = restore_latest(root / "saved", fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for part in ("params", "mu", "nu"):
+            a, b = (named_tensors(fresh["params"] if part == "params"
+                                  else getattr(fresh["opt"], part)),
+                    named_tensors(final["params"] if part == "params"
+                                  else getattr(final["opt"], part)))
+            for n in b:
+                if not _bytes_equal_bool(a[n], b[n]):
+                    raise AssertionError(f"(d) restored {part} {n} differs")
+        if step != DRILL_STEPS - 1 or not torch.equal(fresh["opt"].step,
+                                                      final["opt"].step):
+            raise AssertionError(f"(d) restored step {step}")
+        print(f"(d) save_checkpoint {nbytes} B in {save_s:.2f} s, "
+              f"restore_latest in {restore_s:.2f} s; the bf16 parameters "
+              f"and the moments restored byte for byte")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _bytes_equal_bool(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def train_families(device):
+    """(f): two `make_update_fn` steps of every other family at full width
+    with phase 11's cut."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Runtime, build_model, make_input_batch
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.loop import TrainConfig, make_update_fn
+
+    print("(f) llama4-maverick-400b-a17b left out: its one MoE unit holds "
+          "18.7e9 parameters, whose bf16 values and gradients and float32 "
+          "moments need ~224 GB")
+    for name in TRAIN_FAMILIES:
+        full = get_arch(name)
+        cfg = _cut(full, **FAMILY_CUTS[name])
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        gen = torch.Generator(device=device).manual_seed(12)
+        params = model.init(gen, device=device)
+        batch = make_input_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, gen,
+                                 device=device)
+        opt = init_opt_state(params)
+        update = make_update_fn(model, OptConfig(), Runtime(), TrainConfig())
+        t0 = time.perf_counter()
+        losses, norms = [], []
+        for _ in range(2):
+            _, _, _, m = update(params, opt, None, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in params.parameters())
+        if not (np.isfinite(losses + norms).all() and finite):
+            raise AssertionError(f"(f) {name}: losses {losses}, grad norms "
+                                 f"{norms}, parameters finite {finite}")
+        n = sum(p.numel() for p in params.parameters())
+        print(f"(f) {name}: layers {cfg.n_layers} of {full.n_layers}, {n} "
+              f"parameters; two steps in {secs:.2f} s, losses "
+              f"{losses[0]:.4f}, {losses[1]:.4f}, grad norms "
+              f"{norms[0]:.4f}, {norms[1]:.4f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(device)} B")
+        del model, params, batch, opt, update
+        _fresh_caches()
+
+
+def training_path(device, smi):
+    """Phase 12: (a) train tinyllama-1.1b at full width and depth and the
+    launcher, (c) remat, (b) and (e) the card against the CPU and C19, (d)
+    the recovery drill, (f) every other family. Driven with the launch
+    counts set to 0: returns them (the path launches none)."""
+    _phase(f"12. training: {TRAIN_ARCH} at full width and depth, remat, "
+           f"card against CPU, recovery drill, every family ({smi})")
+    _fresh_caches()
+    _reset_launches()
+    model, params, data_cfg = train_full(device, smi)
+    remat_modes(device, model, params, data_cfg)
+    del model, params
+    _fresh_caches()
+    card_against_cpu(device)
+    _fresh_caches()
+    recovery_drill(device)
+    _fresh_caches()
+    train_families(device)
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched {launches}")
+    print(f"launches on the training path: {launches} (the index "
+          f"embedding; the cuda gather has no backward)")
+    return launches
+
+
 def main():
     import torch
 
@@ -2233,6 +2729,8 @@ def main():
     served["11 serve --arch llama3-8b"], served[
         "11 generate, embed_backend cuda"] = timed(11, generation_path,
                                                    device, smi)
+    served["12 train (no kernel on this path)"] = timed(
+        12, training_path, device, smi)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")

@@ -7,8 +7,13 @@ primitive. Backends, as in `core.gather_engine`:
   * "coalesced": the schedule executed in torch — bitwise identical output,
                  structurally the coalesced access pattern.
   * "cuda":      the hand-written kernel (`kernels.coalesced_gather`) driven
-                 by the same plan (its plain version on a CPU table).
-  * "auto":      cuda on a CUDA table, coalesced on a CPU one.
+                 by the same plan (its plain version on a CPU table). It has
+                 no gradient: on a table that requires grad while autograd
+                 records it raises NotImplementedError on both devices, as
+                 `repro`'s "pallas" backend does under ``jax.grad``.
+  * "auto":      cuda on a CUDA table, coalesced on a CPU one (so under
+                 autograd it raises on the card and differentiates on the
+                 CPU).
 
 Every index stream resolves through the content-addressed
 `get_gather_engine` cache, so repeat streams (a decode loop's fixed page

@@ -1,10 +1,10 @@
 """State carried between the JAX package and this one, as numpy arrays.
 
 For this system the "weights" are the matrix and its coalescer plan, on
-the serving side the paged KV cache, and the model stack's parameters. These
-helpers rebuild them on the torch side from plain arrays (and back), so a
-matrix, a `BlockSchedule`, a paged cache or a model's parameters produced by
-`repro` can be handed to the port's plan lowering, kernels, decode path and
+the serving side the paged KV cache, and the model stack's parameters and
+optimizer state. These helpers rebuild them on the torch side from plain
+arrays (and back), so a matrix, a `BlockSchedule`, a paged cache or a
+model's parameters and AdamW moments produced by `repro` can be handed to the port's plan lowering, kernels, decode path and
 models without either package importing the other.
 """
 from __future__ import annotations
@@ -181,7 +181,7 @@ def _with(tree, path, value):
 def _tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        bits = torch.from_numpy(np.array(a).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return torch.as_tensor(np.array(a), device=device)
 
@@ -224,3 +224,28 @@ def model_params_to_numpy(cfg, module):
     for path, levels in _stacked_paths(cfg, tree).items():
         tree = _with(tree, path, _restack(_at(tree, path), levels))
     return tree
+
+
+def opt_state_from_numpy(cfg, state, device=None):
+    """The port's `optim.optimizer.OptState` for `cfg`'s model from
+    `repro`'s ``OptState(mu, nu, step)`` given as numpy
+    (``jax.tree.map(np.asarray, state)``): `mu` and `nu` in `repro`'s
+    stacked layout become modules of the family's class (as
+    `model_params_from_numpy`), `step` an int32 scalar, on `device`."""
+    from repro_torch.optim.optimizer import OptState
+
+    device = resolve_device(device)
+    mu, nu, step = state
+    return OptState(
+        mu=model_params_from_numpy(cfg, mu, device).requires_grad_(False),
+        nu=model_params_from_numpy(cfg, nu, device).requires_grad_(False),
+        step=torch.as_tensor(np.array(step), device=device).to(torch.int32),
+    )
+
+
+def opt_state_to_numpy(cfg, state):
+    """The inverse of `opt_state_from_numpy`: `repro`'s OptState fields
+    ``(mu, nu, step)`` as numpy, `mu` and `nu` restacked."""
+    return (model_params_to_numpy(cfg, state.mu),
+            model_params_to_numpy(cfg, state.nu),
+            state.step.detach().cpu().numpy())

@@ -424,6 +424,17 @@ def _check_kernel_inputs(table: torch.Tensor, plan: DevicePlan) -> None:
             )
 
 
+def check_no_grad(table: torch.Tensor) -> None:
+    """The kernel has no backward (as `repro`'s Pallas gather, which
+    ``jax.grad`` refuses with NotImplementedError): raise rather than
+    return an output autograd cannot trace back to the table."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise NotImplementedError(
+            "coalesced_gather (backend 'cuda') has no gradient, as repro's "
+            "Pallas gather has none: gather a table that requires grad with "
+            "backend 'index' or 'coalesced', or under torch.no_grad()")
+
+
 def coalesced_gather_cuda(
     table: torch.Tensor,
     indices=None,
@@ -441,6 +452,7 @@ def coalesced_gather_cuda(
     kernel on the current stream through the plan, with the geometry that
     `gather_launch_config` gives for `path`. Each call that launches adds
     one to ``coalesced_gather_cuda.launches``."""
+    check_no_grad(table)
     if not table.is_cuda:
         raise ValueError(
             f"coalesced_gather_cuda launches a CUDA kernel: the table must "

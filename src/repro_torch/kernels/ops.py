@@ -2,14 +2,17 @@
 
 The device of `values` (of `table` for the gather) decides: a CUDA tensor
 launches the hand-written kernel (or raises — there is no fallback), a CPU
-tensor runs the kernel's plain torch version on the same plan.
+tensor runs the kernel's plain torch version on the same plan. Neither
+kernel has a backward: the gather refuses a table that requires grad while
+autograd records, on both devices.
 `CapturedLaunches` carries the wrappers' launch counts across CUDA graphs.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from .coalesced_gather import coalesced_gather_cuda, coalesced_gather_plain
+from .coalesced_gather import check_no_grad, coalesced_gather_cuda, \
+    coalesced_gather_plain
 from .sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from .sell_spmv import sell_spmv_cuda, sell_spmv_plain
 
@@ -29,7 +32,9 @@ def sell_spmm(colidx, values, X, **kwargs):
 
 def coalesced_gather(table, indices=None, **kwargs):
     """``table[indices]`` through the coalesced plan (see
-    `kernels.coalesced_gather`)."""
+    `kernels.coalesced_gather`); raises NotImplementedError on a table that
+    requires grad while autograd records (`check_no_grad`)."""
+    check_no_grad(table)
     fn = coalesced_gather_cuda if table.is_cuda else coalesced_gather_plain
     return fn(table, indices, **kwargs)
 

@@ -1,0 +1,88 @@
+"""Training launcher (port of `repro.launch.train`):
+``python -m repro_torch.launch.train --arch <id> [--reduced]``.
+
+Trains on the card unless ``--device cpu`` is given (without a card and
+without it, it raises). ``--embed-backend`` takes the port's gather
+backends: ``index`` (the default, `repro`'s ``jnp``), ``coalesced``,
+``cuda`` (`repro`'s ``pallas``; it has no gradient and raises under
+training, as ``pallas`` does) or ``auto``. Prints `repro`'s JSON
+(``history``, ``wall_seconds``) with the tokens per second over the whole
+run and the peak device memory (null on the CPU)."""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.models import build_model
+from repro_torch.models.transformer import Runtime
+from repro_torch.optim.optimizer import OptConfig
+from repro_torch.train.loop import TrainConfig, train
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", type=str, default=None)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", type=str, default="none",
+                    choices=["none", "full", "dots"])
+    ap.add_argument("--embed-backend", type=str, default="index",
+                    choices=["index", "coalesced", "cuda", "auto"])
+    ap.add_argument("--device", type=str, default="cuda",
+                    choices=["cuda", "cpu"])
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    rt = Runtime(remat=args.remat, embed_backend=args.embed_backend)
+    if args.device == "cuda" and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+    out = train(
+        model,
+        rt=rt,
+        opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
+        tcfg=TrainConfig(
+            total_steps=args.steps,
+            microbatches=args.microbatches,
+            ckpt_dir=args.ckpt_dir,
+            grad_compression=args.grad_compression,
+        ),
+        data_cfg=DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=args.seq,
+            global_batch=args.batch,
+        ),
+        device=args.device,
+    )
+    device = out["device"]
+    tokens = out["steps"] * args.batch * args.seq
+    print(json.dumps({
+        "history": out["history"],
+        "wall_seconds": out["wall_seconds"],
+        "tokens_per_s": tokens / out["wall_seconds"]
+        if out["wall_seconds"] > 0 else None,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(device)
+        if device.type == "cuda" else None,
+        "device": str(device),
+    }, indent=2))
+    return out
+
+
+if __name__ == "__main__":
+    main()

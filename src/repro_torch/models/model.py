@@ -1,5 +1,5 @@
 """Unified model interface (port of `repro.models.model`): build_model(cfg)
--> Model with init / forward / cache / decode, the loss value, the
+-> Model with init / forward / cache / decode, the training loss, the
 parameter count and a seeded input batch."""
 from __future__ import annotations
 
@@ -52,8 +52,9 @@ def lm_loss(
     model: Model, params, batch: Dict[str, torch.Tensor], rt: Runtime,
     aux_weight: float = 0.01,
 ) -> torch.Tensor:
-    """Next-token cross entropy (+ MoE aux loss): the value. batch['tokens']
-    (B, S); optional batch['loss_mask'] (B, S)."""
+    """Next-token cross entropy (+ MoE aux loss), differentiable in the
+    parameters (`train.loop` takes its gradients with `torch.autograd`).
+    batch['tokens'] (B, S); optional batch['loss_mask'] (B, S)."""
     logits, aux = model.forward(params, batch, rt)  # (B, S, V) f32
     tokens = batch["tokens"].to(logits.device)
     targets = tokens[:, 1:].to(torch.int64)

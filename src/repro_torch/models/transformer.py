@@ -12,9 +12,13 @@ and each ``build_*`` returns `repro`'s tuple of functions
 `repro` stacks each repeating unit's parameters on a leading axis and scans
 them (`_stack_init`, `_scan_layers`); the port keeps one module per layer in
 lists (``units.pos0.3.attn.wq``) and runs the layers in a Python loop in
-`repro`'s order. `Runtime.scan_layers` and `Runtime.remat` are accepted and
-change nothing (`repro`'s own test pins that scanning and unrolling agree;
-remat only trades memory for recompute under autodiff).
+`repro`'s order. `Runtime.scan_layers` is accepted and changes nothing
+(`repro`'s own test pins that scanning and unrolling agree). `Runtime.remat`
+checkpoints each layer that `repro` scans (its `_maybe_remat` wraps the
+scan body) while autograd records: ``"full"`` recomputes the whole layer in
+the backward pass, ``"dots"`` keeps the un-batched matmuls' outputs (the
+weight GEMMs, `aten.mm`/`aten.addmm`) and recomputes the rest, as
+``dots_with_no_batch_dims_saveable`` does.
 
 Caches mirror the parameters: per-layer (k, v) tensors in lists, written in
 place by each decode step (as `models.paged_kv` does; `repro` returns a new
@@ -23,10 +27,12 @@ cache), and ``cache["index"]`` is a Python int.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
@@ -44,8 +50,9 @@ class Runtime:
     ``jnp``: ``table[ids]``), ``coalesced`` (the schedule executed in torch;
     `repro`'s ``coalesced``), ``cuda`` (the hand-written `coalesced_gather`
     kernel; `repro`'s ``pallas``) or ``auto`` (cuda on the card, coalesced
-    on the CPU). ``remat`` and ``scan_layers`` change nothing here (see the
-    module docstring); ``moe_ep_constraint`` and ``seq_shard_attention`` are
+    on the CPU). ``remat`` checkpoints each scanned layer under autograd and
+    ``scan_layers`` changes nothing (see the module docstring);
+    ``moe_ep_constraint`` and ``seq_shard_attention`` are
     layout hints for a device mesh, no-ops on one device."""
 
     remat: str = "none"  # none | full | dots
@@ -87,7 +94,8 @@ class ParamList(nn.ModuleList):
 class ParamDict(nn.Module):
     """A mapping of `repro`'s leaf names to parameters and subtrees:
     ``p["wq"]``, ``"bq" in p``, ``p.keys()``, as the layer functions read a
-    dict. Parameters do not require grad (nothing is trained here)."""
+    dict. Parameters require grad: serving runs under
+    `torch.inference_mode`, training differentiates them."""
 
     def __init__(self, tree: Optional[dict] = None):
         super().__init__()
@@ -95,8 +103,7 @@ class ParamDict(nn.Module):
         for name, value in (tree or {}).items():
             self._names.append(name)
             if torch.is_tensor(value):
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value))
             else:
                 self.add_module(name, None if value is None
                                 else _as_module(value))
@@ -114,6 +121,11 @@ class ParamDict(nn.Module):
 
     def items(self):
         return [(n, self[n]) for n in self._names]
+
+    def like(self, tree: dict) -> "ParamDict":
+        """A module of this one's class (and config) holding `tree`, a
+        nested dict of this one's structure: optimizer moments, gradients."""
+        return type(self)(tree)
 
     def to_tree(self) -> dict:
         """The nested dict of tensors (and lists, and None) this holds."""
@@ -136,6 +148,28 @@ def _as_module(value):
     if isinstance(value, (list, tuple)):
         return ParamList(value)
     raise TypeError(f"cannot hold {type(value).__name__} in a parameter tree")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: save the un-batched matmuls."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer(rt: "Runtime", fn: Callable, *args):
+    """``fn(*args)`` for one layer `repro` scans, under `rt.remat` while
+    autograd records (`repro`'s `_maybe_remat`)."""
+    if rt.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if rt.remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if rt.remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be none, full or dots, got {rt.remat!r}")
 
 
 def _stack_init(init_one: Callable[[], Any], n: int) -> list:
@@ -162,6 +196,9 @@ class _Family(ParamDict):
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__(tree)
         self.cfg = cfg
+
+    def like(self, tree: dict) -> "_Family":
+        return type(self)(self.cfg, tree)
 
     @property
     def device(self) -> torch.device:
@@ -370,9 +407,9 @@ class DecoderLM(_Family):
             kvs = []
             for u, lp in enumerate(self.units[name]):
                 kv = cache["units"][name][u] if cache is not None else None
-                x, nkv, aux = _apply_dense_layer(
-                    cfg, rt, lp, x, positions, kv_cache=kv,
-                    cache_index=cache_index)
+                x, nkv, aux = _layer(rt, functools.partial(
+                    _apply_dense_layer, cfg, rt, lp, kv_cache=kv,
+                    cache_index=cache_index), x, positions)
                 aux_total = aux_total + aux
                 kvs.append(nkv)
             new_units[name] = kvs
@@ -463,14 +500,18 @@ class Zamba2(_Family):
             "shared": _init_dense_layer(cfg, gen, device),
         }
 
-    def _mamba_seq(self, x, layers, states):
+    def _mamba_layer(self, lp, state, x):
+        h = L.rmsnorm_apply(lp["norm"], x, self.cfg.norm_eps)
+        out, st = S.mamba2_apply(lp["mixer"], h, ssm=self.cfg.ssm,
+                                 state=state)
+        return x + out, st
+
+    def _mamba_seq(self, x, layers, states, rt):
         new = []
         for i, lp in enumerate(layers):
-            h = L.rmsnorm_apply(lp["norm"], x, self.cfg.norm_eps)
-            out, st = S.mamba2_apply(
-                lp["mixer"], h, ssm=self.cfg.ssm,
-                state=states[i] if states is not None else None)
-            x = x + out
+            x, st = _layer(rt, functools.partial(
+                self._mamba_layer, lp,
+                states[i] if states is not None else None), x)
             new.append(st)
         return x, new
 
@@ -479,7 +520,8 @@ class Zamba2(_Family):
                                      "tail": None}
         for j, unit in enumerate(self.mamba_units):
             x, st = self._mamba_seq(
-                x, unit, cache["units"][j] if cache is not None else None)
+                x, unit, cache["units"][j] if cache is not None else None,
+                rt)
             kv = cache["shared_kv"][j] if cache is not None else None
             x, nkv, _ = _apply_dense_layer(
                 self.cfg, rt, self.shared, x, positions,
@@ -490,7 +532,7 @@ class Zamba2(_Family):
         if self.mamba_tail is not None:
             x, new_cache["tail"] = self._mamba_seq(
                 x, self.mamba_tail,
-                cache["tail"] if cache is not None else None)
+                cache["tail"] if cache is not None else None, rt)
         return x, (new_cache if cache is not None else None)
 
     def forward(self, batch, rt: Runtime):
@@ -576,17 +618,22 @@ class XLSTM(_Family):
             "slstm": _stack_init(slstm, n_units),
         }
 
-    def _run(self, x, cache=None):
+    def _mlstm_layer(self, lp, state, x):
+        cfg = self.cfg
+        h = L.rmsnorm_apply(lp["norm"], x, cfg.norm_eps)
+        out, st = X.mlstm_apply(lp["cell"], h, n_heads=cfg.n_heads,
+                                chunk=cfg.xlstm.chunk, state=state)
+        return x + out, st
+
+    def _run(self, x, rt, cache=None):
         cfg = self.cfg
         m_new, s_new = [], []
         for j, (unit, sp) in enumerate(zip(self.mlstm, self.slstm)):
             states = []
             for i, lp in enumerate(unit):
-                h = L.rmsnorm_apply(lp["norm"], x, cfg.norm_eps)
-                out, st = X.mlstm_apply(
-                    lp["cell"], h, n_heads=cfg.n_heads, chunk=cfg.xlstm.chunk,
-                    state=cache["mlstm"][j][i] if cache is not None else None)
-                x = x + out
+                x, st = _layer(rt, functools.partial(
+                    self._mlstm_layer, lp,
+                    cache["mlstm"][j][i] if cache is not None else None), x)
                 states.append(st)
             m_new.append(states)
             h = L.rmsnorm_apply(sp["norm"], x, cfg.norm_eps)
@@ -601,7 +648,7 @@ class XLSTM(_Family):
 
     def forward(self, batch, rt: Runtime):
         x = self._embed(batch["tokens"], rt)
-        x, _ = self._run(x)
+        x, _ = self._run(x, rt)
         x = L.rmsnorm_apply(self.final_norm, x, self.cfg.norm_eps)
         return L.logits_apply(self.tok, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
@@ -626,7 +673,7 @@ class XLSTM(_Family):
 
     def decode_step(self, tokens, cache, rt: Runtime):
         x = self._embed(tokens, rt)
-        x, new_cache = self._run(x, cache=cache)
+        x, new_cache = self._run(x, rt, cache=cache)
         new_cache["index"] = cache["index"] + tokens.shape[1]
         x = L.rmsnorm_apply(self.final_norm, x, self.cfg.norm_eps)
         return L.logits_apply(self.tok, x[:, -1:]), new_cache
@@ -702,49 +749,60 @@ class Whisper(_Family):
         positions = _positions(0, Se, x.device)
         full = torch.ones((1, 1, Se, Se), dtype=torch.bool, device=x.device)
         for lp in self.enc:
-            h = L.layernorm_apply(lp["attn_norm"], x, cfg.norm_eps)
-            out, _ = L.attention_apply(
-                lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=hd, positions=positions, use_rope=False, mask=full,
-            )
-            x = x + out
-            h = L.layernorm_apply(lp["ffn_norm"], x, cfg.norm_eps)
-            x = x + L.ffn_apply(lp["ffn"], h, "gelu")
+            x = _layer(rt, functools.partial(self._enc_layer, lp, positions,
+                                             full), x)
         return L.layernorm_apply(self.enc_norm, x, cfg.norm_eps)
 
-    def _dec_stack(self, x, positions, enc_out, cache=None, cache_index=None):
+    def _enc_layer(self, lp, positions, full, x):
+        cfg = self.cfg
+        h = L.layernorm_apply(lp["attn_norm"], x, cfg.norm_eps)
+        out, _ = L.attention_apply(
+            lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, positions=positions,
+            use_rope=False, mask=full,
+        )
+        x = x + out
+        h = L.layernorm_apply(lp["ffn_norm"], x, cfg.norm_eps)
+        return x + L.ffn_apply(lp["ffn"], h, "gelu")
+
+    def _dec_stack(self, x, positions, enc_out, rt, cache=None,
+                   cache_index=None):
+        cross_mask = torch.ones((1, 1, 1, enc_out.shape[1]),
+                                dtype=torch.bool, device=x.device)
+        new_kv = []
+        for i, lp in enumerate(self.dec):
+            x, nkv = _layer(rt, functools.partial(
+                self._dec_layer, lp, positions, enc_out, cross_mask,
+                cache[i] if cache is not None else None, cache_index), x)
+            new_kv.append(nkv)
+        return x, (new_kv if cache is not None else None)
+
+    def _dec_layer(self, lp, positions, enc_out, cross_mask, kv,
+                   cache_index, x):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         B, Se = x.shape[0], enc_out.shape[1]
-        cross_mask = torch.ones((1, 1, 1, Se), dtype=torch.bool,
-                                device=x.device)
-        new_kv = []
-        for i, lp in enumerate(self.dec):
-            h = L.layernorm_apply(lp["self_norm"], x, cfg.norm_eps)
-            out, nkv = L.attention_apply(
-                lp["self_attn"], h, n_heads=cfg.n_heads,
-                n_kv_heads=cfg.n_kv_heads, head_dim=hd, positions=positions,
-                use_rope=False,
-                kv_cache=cache[i] if cache is not None else None,
-                cache_index=cache_index,
-            )
-            x = x + out
-            h = L.layernorm_apply(lp["cross_norm"], x, cfg.norm_eps)
-            ca = lp["cross_attn"]
-            k = (L.mm(enc_out, ca["wk"]) + ca["bk"]).reshape(
-                B, Se, cfg.n_kv_heads, hd)
-            v = (L.mm(enc_out, ca["wv"]) + ca["bv"]).reshape(
-                B, Se, cfg.n_kv_heads, hd)
-            out, _ = L.attention_apply(
-                ca, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=hd, positions=positions, use_rope=False,
-                kv_override=(k, v), mask=cross_mask,
-            )
-            x = x + out
-            h = L.layernorm_apply(lp["ffn_norm"], x, cfg.norm_eps)
-            x = x + L.ffn_apply(lp["ffn"], h, "gelu")
-            new_kv.append(nkv)
-        return x, (new_kv if cache is not None else None)
+        h = L.layernorm_apply(lp["self_norm"], x, cfg.norm_eps)
+        out, nkv = L.attention_apply(
+            lp["self_attn"], h, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=hd, positions=positions,
+            use_rope=False, kv_cache=kv, cache_index=cache_index,
+        )
+        x = x + out
+        h = L.layernorm_apply(lp["cross_norm"], x, cfg.norm_eps)
+        ca = lp["cross_attn"]
+        k = (L.mm(enc_out, ca["wk"]) + ca["bk"]).reshape(
+            B, Se, cfg.n_kv_heads, hd)
+        v = (L.mm(enc_out, ca["wv"]) + ca["bv"]).reshape(
+            B, Se, cfg.n_kv_heads, hd)
+        out, _ = L.attention_apply(
+            ca, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=hd, positions=positions, use_rope=False,
+            kv_override=(k, v), mask=cross_mask,
+        )
+        x = x + out
+        h = L.layernorm_apply(lp["ffn_norm"], x, cfg.norm_eps)
+        return x + L.ffn_apply(lp["ffn"], h, "gelu"), nkv
 
     def forward(self, batch, rt: Runtime):
         enc_out = self.encode(batch["enc_input"], rt)
@@ -752,7 +810,7 @@ class Whisper(_Family):
         Sq = tokens.shape[1]
         x = self._embed(tokens, rt)
         x = x + self._pos_slice(self.dec_pos, 0, Sq)
-        x, _ = self._dec_stack(x, _positions(0, Sq, x.device), enc_out)
+        x, _ = self._dec_stack(x, _positions(0, Sq, x.device), enc_out, rt)
         x = L.layernorm_apply(self.final_norm, x, self.cfg.norm_eps)
         return L.logits_apply(self.tok, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
@@ -777,7 +835,7 @@ class Whisper(_Family):
         x = self._embed(tokens, rt)
         x = x + self._pos_slice(self.dec_pos, index, Sq)
         x, new_kv = self._dec_stack(
-            x, _positions(index, Sq, x.device), cache["enc_out"],
+            x, _positions(index, Sq, x.device), cache["enc_out"], rt,
             cache=cache["self_kv"], cache_index=index,
         )
         x = L.layernorm_apply(self.final_norm, x, self.cfg.norm_eps)
@@ -875,12 +933,11 @@ class VLM(_Family):
         for j, (unit, clp) in enumerate(zip(self.self_units, self.cross)):
             kvs = []
             for i, lp in enumerate(unit):
-                x, nkv, _ = _apply_dense_layer(
-                    self.cfg, rt, lp, x, positions,
+                x, nkv, _ = _layer(rt, functools.partial(
+                    _apply_dense_layer, self.cfg, rt, lp,
                     kv_cache=cache["self_kv"][j][i] if cache is not None
                     else None,
-                    cache_index=cache_index,
-                )
+                    cache_index=cache_index), x, positions)
                 kvs.append(nkv)
             new_units.append(kvs)
             x = self._cross_apply(clp, x, self._img_kv(clp, img_embeds))

@@ -1,0 +1,188 @@
+"""Training loop (port of `repro.train.loop`): microbatched
+(gradient-accumulation) training with checkpoint/restart, async saves,
+optional error-feedback gradient compression and straggler accounting, on
+one device.
+
+Gradients come from `torch.autograd.grad` per microbatch and are summed
+into float32 accumulators, as `repro` sums into float32 zeros (``.grad``
+would accumulate in the parameters' dtype, bf16 at full width). A mesh of
+more than one device raises: the sharded step is the next slice of the
+port (ROADMAP A1)."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.runtime import resolve_device
+from repro_torch.data.pipeline import DataConfig, PrefetchIterator, \
+    TokenPipeline, device_put_batch
+from repro_torch.models import Model, lm_loss
+from repro_torch.models.transformer import Runtime
+from repro_torch.optim.compression import compress_with_feedback, \
+    init_residual
+from repro_torch.optim.optimizer import OptConfig, OptState, adamw_update, \
+    init_opt_state
+from repro_torch.optim.tree import map_tree, named_tensors
+from repro_torch.train.checkpoint import AsyncCheckpointer, restore_latest
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    total_steps: int = 200
+    microbatches: int = 1  # gradient-accumulation steps per update
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    grad_compression: bool = False  # error-feedback int8 on the DP reduce
+    step_deadline_s: Optional[float] = None
+
+
+def value_and_grad(loss_fn: Callable, params) -> Tuple[torch.Tensor, Any]:
+    """(loss, grads): ``loss_fn(params)`` detached and its gradients as a
+    tree of the parameters' structure (zeros for a parameter the loss does
+    not use, as ``jax.grad`` gives)."""
+    named = named_tensors(params)
+    with torch.enable_grad():
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    by_name = dict(zip(named, grads))
+    return loss.detach(), map_tree(lambda p, g: g, params, by_name)
+
+
+def make_update_fn(model: Model, opt_cfg: OptConfig, rt: Runtime,
+                   tcfg: TrainConfig):
+    """Returns update(params, opt_state, residual, batch) ->
+    (params, opt_state, residual, metrics): the batch split into
+    `tcfg.microbatches` along its leading axis, their gradients summed in
+    float32 and averaged, optional error-feedback compression, then AdamW
+    (in place)."""
+
+    def loss_on(mb):
+        return lambda p: lm_loss(model, p, mb, rt)
+
+    def update(params, opt_state: OptState, residual, batch):
+        n = tcfg.microbatches
+        if n > 1:
+            gsum = map_tree(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            acc = named_tensors(gsum)
+            lsum = None
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+                      [i] for k, v in batch.items()}
+                loss, grads = value_and_grad(loss_on(mb), params)
+                for name, g in named_tensors(grads).items():
+                    acc[name].add_(g)
+                lsum = loss.float() if lsum is None else lsum + loss
+                del grads
+            for g in acc.values():
+                g.div_(n)
+            grads, loss = gsum, lsum / n
+        else:
+            loss, grads = value_and_grad(loss_on(batch), params)
+
+        if tcfg.grad_compression:
+            grads, residual = compress_with_feedback(grads, residual)
+
+        params, opt_state, metrics = adamw_update(
+            opt_cfg, params, grads, opt_state
+        )
+        metrics["loss"] = loss
+        return params, opt_state, residual, metrics
+
+    return update
+
+
+def _single_device(mesh, device):
+    if mesh is None:
+        return resolve_device(device)
+    devices = list(mesh.devices.reshape(-1))
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"train on a mesh of {len(devices)} devices: the sharded "
+            f"training step (sharding rules, a multi-device step on a torch "
+            f"process grid) is not ported yet (ROADMAP A1); pass mesh=None "
+            f"or a one-device mesh")
+    return resolve_device(devices[0])
+
+
+def train(
+    model: Model,
+    *,
+    mesh=None,
+    rt: Runtime = Runtime(),
+    opt_cfg: OptConfig = OptConfig(),
+    tcfg: TrainConfig = TrainConfig(),
+    data_cfg: Optional[DataConfig] = None,
+    seed: int = 0,
+    device=None,
+) -> Dict[str, Any]:
+    """End-to-end training on `device` (default the card; a one-device
+    `mesh` names it instead). Returns summary metrics (final loss,
+    history) with the trained parameters and optimizer state."""
+    device = _single_device(mesh, device)
+    cfg = model.cfg
+    data_cfg = data_cfg or DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=8
+    )
+    pipeline = TokenPipeline(data_cfg)
+
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    opt_state = init_opt_state(params)
+    residual = init_residual(params) if tcfg.grad_compression else None
+
+    update = make_update_fn(model, opt_cfg, rt, tcfg)
+
+    ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
+    start_step = 0
+    if ckpt is not None:
+        restored = restore_latest(
+            tcfg.ckpt_dir, {"params": params, "opt": opt_state}
+        )
+        if restored is not None:
+            start_step = restored[0] + 1
+            pipeline.skip_to(start_step)
+
+    history = []
+    it = PrefetchIterator(iter(pipeline), depth=2)
+    t_start = time.time()
+    slow_steps = 0
+    for step in range(start_step, tcfg.total_steps):
+        t0 = time.time()
+        batch = device_put_batch(next(it), device)
+        params, opt_state, residual, metrics = update(
+            params, opt_state, residual, batch
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # honest step timing
+        dt = time.time() - t0
+        if tcfg.step_deadline_s and dt > tcfg.step_deadline_s:
+            slow_steps += 1
+        if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:
+            history.append(
+                {"step": step, "loss": float(metrics["loss"]),
+                 "grad_norm": float(metrics["grad_norm"]), "sec": dt}
+            )
+        if ckpt is not None and (
+            step % tcfg.ckpt_every == 0 or step == tcfg.total_steps - 1
+        ):
+            ckpt.save(step, {"params": params, "opt": opt_state})
+    if ckpt is not None:
+        ckpt.wait()
+    it.close()
+    return {
+        "history": history,
+        "final_loss": history[-1]["loss"] if history else None,
+        "params": params,
+        "opt_state": opt_state,
+        "wall_seconds": time.time() - t_start,
+        "slow_steps": slow_steps,
+        "steps": max(tcfg.total_steps - start_step, 0),
+        "device": device,
+    }

@@ -873,3 +873,150 @@ def test_cuda_embedding_model_logits_equal_index_bitwise(cuda):
     assert coalesced_gather_cuda.launches == before + 4
     assert torch.equal(toks, generate(model, card, batch["tokens"],
                                       max_new_tokens=3, rt=Runtime()))
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_pair(cuda, layers=2, dtype="float32"):
+    """A reduced tinyllama cut to `layers`, the same numpy parameters on the
+    CPU and the card, and a pipeline batch on each."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.interop import model_params_from_numpy, \
+        model_params_to_numpy
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, \
+        device_put_batch
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(ARCHS["tinyllama-1.1b"].reduced(),
+                              n_layers=layers, dtype=dtype)
+    model = build_model(cfg)
+    arrays = model_params_to_numpy(cfg, model.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                     global_batch=4)).batch_at(2)
+    return cfg, model, [
+        (model_params_from_numpy(cfg, arrays, device=dev),
+         device_put_batch(batch, dev)) for dev in ("cpu", cuda)]
+
+
+@pytest.mark.parametrize("kw", [{}, {"microbatches": 2},
+                                {"grad_compression": True}])
+def test_train_step_on_card_matches_the_cpu(cuda, kw):
+    """One `make_update_fn` update of a 2-layer float32 model: the loss
+    within 1e-5 relative, every gradient leaf within 1e-4 * max|g| + 1e-6
+    and the updated parameters within 1e-5 of the CPU's."""
+    from repro_torch.models import Runtime, lm_loss
+    from repro_torch.optim.compression import init_residual
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.train.loop import TrainConfig, make_update_fn, \
+        value_and_grad
+
+    _, model, pairs = _train_pair(cuda)
+    grads = [value_and_grad(lambda p, b=b: lm_loss(model, p, b, Runtime()),
+                            p) for p, b in pairs]
+    (lc, gc), (lg, gg) = grads
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    gg = named_tensors(gg)
+    for name, want in named_tensors(gc).items():
+        err = (gg[name].cpu() - want).abs().max()
+        assert err <= 1e-4 * want.abs().max() + 1e-6, name
+    tcfg = TrainConfig(**kw)
+    out = []
+    for params, batch in pairs:
+        res = init_residual(params) if tcfg.grad_compression else None
+        update = make_update_fn(model, OptConfig(lr=1e-3, warmup_steps=0),
+                                Runtime(), tcfg)
+        _, _, _, m = update(params, init_opt_state(params), res, batch)
+        out.append((float(m["loss"]), named_tensors(params)))
+    (lc, pc), (lg, pg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for name, want in pc.items():
+        torch.testing.assert_close(pg[name].detach().cpu(), want.detach(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_embedding_refuses_autograd_on_card(cuda):
+    """C19: the gather kernel has no backward; under autograd the cuda
+    backend (and auto, which picks it on the card) raises, and under
+    no_grad it gives the index embedding's loss."""
+    from repro_torch.models import Runtime, lm_loss
+
+    _, model, pairs = _train_pair(cuda)
+    params, batch = pairs[1]
+    before = coalesced_gather_cuda.launches
+    for backend in ("cuda", "auto"):
+        with pytest.raises(NotImplementedError, match="no gradient"):
+            lm_loss(model, params, batch, Runtime(embed_backend=backend))
+    with pytest.raises(NotImplementedError):
+        ops.coalesced_gather(params.tok.embed, batch["tokens"].reshape(-1))
+    assert coalesced_gather_cuda.launches == before
+    with torch.no_grad():
+        got = lm_loss(model, params, batch, Runtime(embed_backend="cuda"))
+        want = lm_loss(model, params, batch, Runtime())
+    assert coalesced_gather_cuda.launches == before + 1
+    assert float(got) == float(want)
+
+
+def test_remat_modes_equal_on_card(cuda):
+    from repro_torch.models import Runtime, lm_loss
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.optim.tree import named_tensors
+
+    _, model, pairs = _train_pair(cuda)
+    params, batch = pairs[1]
+    out = {}
+    for remat in ("none", "full", "dots"):
+        loss, grads = value_and_grad(
+            lambda p: lm_loss(model, p, batch, Runtime(remat=remat)), params)
+        out[remat] = (float(loss), named_tensors(grads))
+    loss, grads = out["none"]
+    for remat in ("full", "dots"):
+        assert abs(out[remat][0] - loss) <= 1e-6 * abs(loss)
+        for name, g in grads.items():
+            torch.testing.assert_close(out[remat][1][name], g, rtol=1e-6,
+                                       atol=1e-6 * float(g.abs().max()))
+
+
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 model and its moments on the card, saved in `repro`'s layout
+    and restored into another state on the card byte for byte (C21)."""
+    import json
+
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.models import Runtime
+    from repro_torch.train.checkpoint import restore_latest, \
+        save_checkpoint
+    from repro_torch.train.loop import TrainConfig, make_update_fn
+
+    cfg, model, pairs = _train_pair(cuda, dtype="bfloat16")
+    params, batch = pairs[1]
+    state = {"params": params, "opt": init_opt_state(params)}
+    make_update_fn(model, OptConfig(), Runtime(), TrainConfig())(
+        params, state["opt"], None, batch)
+    path = save_checkpoint(tmp_path, 1, state)
+    manifest = json.loads((path / "manifest.json").read_text())
+    assert {e["dtype"] for e in manifest["leaves"]} == {"bfloat16",
+                                                        "float32", "int32"}
+    other = model.init(torch.Generator(device=cuda).manual_seed(9),
+                       device=cuda)
+    fresh = {"params": other, "opt": init_opt_state(other)}
+    step, fresh = restore_latest(tmp_path, fresh)
+    assert step == 1 and int(fresh["opt"].step) == 1
+    for part in ("params", "mu", "nu"):
+        a = named_tensors(state["params"] if part == "params"
+                          else getattr(state["opt"], part))
+        b = named_tensors(fresh["params"] if part == "params"
+                          else getattr(fresh["opt"], part))
+        for name, t in a.items():
+            assert b[name].device == t.device and b[name].dtype == t.dtype
+            assert torch.equal(b[name].view(torch.uint8)
+                               if t.dtype == torch.bfloat16 else b[name],
+                               t.view(torch.uint8)
+                               if t.dtype == torch.bfloat16 else t), name

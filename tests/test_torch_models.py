@@ -96,7 +96,7 @@ def test_params_carry_and_round_trip(name):
         np.testing.assert_array_equal(got, want)
     assert count_params(params) == j_count_params(jparams)
     names = dict(params.named_parameters())
-    assert all(not p.requires_grad for p in names.values())
+    assert all(p.requires_grad for p in names.values())
     layer = {"dense": "units.pos0.0.attn.wq", "moe": "units.pos0.0.attn.wq",
              "hybrid": "mamba_units.0.1.mixer.w_in",
              "ssm": "mlstm.0.0.cell.wq", "audio": "dec.1.cross_attn.bk",
