@@ -184,10 +184,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    steps with finite losses, gradients and parameters (llama4-maverick is
    left out: its one unit's parameters, gradients and moments need
    ~224 GB).
+13. The sharded training step (no kernel of the three runs here either):
+   (a) `train()` on a 1x1 NCCL process mesh (`launch.mesh.
+   make_process_mesh`), tinyllama-1.1b at full width and depth with phase
+   12 (a)'s seed, batch 8 x 512 and optimizer, 10 steps: every parameter
+   and moment a DTensor placed by `sharding.rules.param_pspecs`; each
+   step's loss within ``1e-5 * |loss|`` of phase 12 (a)'s at the same step
+   (bitwise printed); step ms (median of steps 1-9), tokens/s and peak
+   device memory beside phase 12 (a)'s, and what DTensor adds to a step;
+   (b) on the host's CPU, ``python -m torch.distributed.run
+   --nproc-per-node 4 -m repro_torch.launch.train --arch tinyllama-1.1b
+   --reduced --mesh 2,2 --device cpu --steps 4``: four gloo ranks of the
+   2x2 grid under the machine's torch, `repro`'s JSON printed once with
+   finite losses.
 
 Every served path (the serve runs of phases 3 and 5-11; phase 3's matvec;
-phase 11's first cuda-embedding run; phase 12's training) is driven with the launch counts set
-to 0 just before it and read just after; the JSON line before the card line sums them per kernel (one entry
+phase 11's first cuda-embedding run; phases 12 and 13's training) is
+driven with the launch counts set to 0 just before it and read just after;
+the JSON line before the card line sums them per kernel (one entry
 per kernel; `sell_spmv`'s times are at the solver shape whose served solves
 launched it most). The launches of phase 6's extra solves, phase 7's checks
 and timing runs, phase 9's measured searches and phase 10's engine runs and
@@ -2339,6 +2353,11 @@ def train_full(device, smi):
     n_params = sum(p.numel() for p in params.parameters())
     step_s = float(np.median([h["sec"] for h in hist[1:]]))
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    PHASE12.update(losses=[h["loss"] for h in hist],
+                   grad_norms=[h["grad_norm"] for h in hist],
+                   step_ms=float(np.median([h["sec"] for h in
+                                            hist[1:SHARD_STEPS]])) * 1e3,
+                   peak=peak)
     print(f"(a) {n_params} parameters; loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f} (drop {drop:.4f} > {TRAIN_DROP}); first "
           f"step {hist[0]['sec'] * 1e3:.1f} ms, later steps median "
@@ -2681,6 +2700,139 @@ def training_path(device, smi):
     return launches
 
 
+# Phase 13: the sharded step on a 1x1 NCCL mesh against phase 12 (a)
+PHASE12 = {}  # phase 12 (a)'s losses, step ms and peak, filled there
+SHARD_STEPS = 10
+GRID_ARGV = ["--arch", TRAIN_ARCH, "--reduced", "--mesh", "2,2", "--device",
+             "cpu", "--steps", "4"]
+
+
+def sharded_full(device, smi):
+    """(a): `train()` on a 1x1 NCCL process mesh at full width and depth,
+    against phase 12 (a)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.sharding.dtensor import is_dtensor
+    from repro_torch.train.loop import TrainConfig, train
+
+    if len(PHASE12.get("losses", ())) < SHARD_STEPS:
+        raise AssertionError(f"(a) phase 12 (a) left {PHASE12}")
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    try:
+        mesh = make_process_mesh(1, 1)
+        print(f"(a) process mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+              f" on {mesh.device_type}, backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}")
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = train(model, mesh=mesh, rt=Runtime(),
+                    opt_cfg=OptConfig(lr=1e-3, warmup_steps=5,
+                                      total_steps=TRAIN_STEPS),
+                    tcfg=TrainConfig(total_steps=SHARD_STEPS, log_every=1),
+                    data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH),
+                    device=device)
+        peak = torch.cuda.max_memory_allocated(device)
+        params, opt = out["params"], out["opt_state"]
+        tensors = list(params.parameters()) + list(opt.mu.parameters()) \
+            + list(opt.nu.parameters())
+        if not all(is_dtensor(t) for t in tensors):
+            raise AssertionError("(a) a parameter or moment is not a DTensor")
+        placed = {repr(tuple(p.placements)) for p in params.parameters()}
+        hist = out["history"]
+        want = PHASE12["losses"][:SHARD_STEPS]
+        got = [h["loss"] for h in hist]
+        for h, w, wn in zip(hist, want, PHASE12["grad_norms"]):
+            print(f"(a) step {h['step']:2d}: loss {h['loss']!r} (phase 12 "
+                  f"{w!r}), grad_norm {h['grad_norm']!r} (phase 12 "
+                  f"{wn!r}), {h['sec'] * 1e3:.1f} ms")
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        if len(got) != SHARD_STEPS or not worst <= LOSS_RTOL:
+            raise AssertionError(f"(a) losses {got} against phase 12's "
+                                 f"{want}")
+        step_ms = float(np.median([h["sec"] for h in hist[1:]])) * 1e3
+        base = PHASE12["step_ms"]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"(a) {len(tensors)} DTensors (parameters and moments) on "
+              f"placements {sorted(placed)}; the {SHARD_STEPS} losses within "
+              f"{worst:.3e} relative of phase 12 (a)'s (bitwise: "
+              f"{got == want}); first step {hist[0]['sec'] * 1e3:.1f} ms "
+              f"(DTensor's sharding propagation warms up)")
+        print(f"(a) sharded step on 1x1: median {step_ms:.1f} ms, "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, peak device memory "
+              f"{peak} B; phase 12 (a) on the same card: {base:.1f} ms, "
+              f"{tokens / base * 1e3:.0f} tokens/s, {PHASE12['peak']} B; "
+              f"DTensor adds {step_ms - base:.1f} ms a step "
+              f"({step_ms / base:.3f}x) ({smi})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del out, params, opt, tensors
+    _fresh_caches()
+
+
+def grid_on_host():
+    """(b): the 2x2 grid as four gloo ranks on the host's CPU, through
+    ``torch.distributed.run`` and the launcher."""
+    from repro_torch.launch.mesh import free_port
+
+    argv = [sys.executable, "-m", "torch.distributed.run",
+            "--nproc-per-node", "4", "--master-port", str(free_port()),
+            "-m", "repro_torch.launch.train"] + GRID_ARGV
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(b) exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    if proc.stdout.count('"history"') != 1:
+        raise AssertionError(f"(b) printed {proc.stdout!r}")
+    out = json.loads(proc.stdout[proc.stdout.index("{"):])
+    losses = [h["loss"] for h in out["history"]]
+    if out.get("mesh") != {"data": 2, "model": 2} or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"(b) {out}")
+    print(f"(b) CPU (the host, 4 gloo ranks): python -m torch.distributed.run"
+          f" --nproc-per-node 4 -m repro_torch.launch.train "
+          f"{' '.join(GRID_ARGV)}: exit 0 in {secs:.1f} s, the JSON printed "
+          f"once, mesh {out['mesh']}, losses {losses}, "
+          f"{out['tokens_per_s']:.0f} tokens/s on the CPU")
+
+
+def sharded_training_path(device, smi):
+    """Phase 13: (a) the sharded step on a 1x1 NCCL mesh at full width and
+    depth against phase 12 (a), (b) the 2x2 grid on the host's CPU. Driven
+    with the launch counts set to 0: returns them (the path launches
+    none)."""
+    import torch
+
+    _phase(f"13. sharded training: {TRAIN_ARCH} on a 1x1 NCCL process mesh "
+           f"against phase 12, the 2x2 grid on the host ({smi})")
+    print(f"torch {torch.__version__}")
+    _fresh_caches()
+    _reset_launches()
+    sharded_full(device, smi)
+    grid_on_host()
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the sharded training path launched "
+                             f"{launches}")
+    print(f"launches on the sharded training path: {launches} (the index "
+          f"embedding on DTensors)")
+    return launches
+
+
 def main():
     import torch
 
@@ -2731,6 +2883,8 @@ def main():
                                                    device, smi)
     served["12 train (no kernel on this path)"] = timed(
         12, training_path, device, smi)
+    served["13 train on a process mesh (no kernel on this path)"] = timed(
+        13, sharded_training_path, device, smi)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")

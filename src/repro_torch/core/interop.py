@@ -187,7 +187,9 @@ def _tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    from repro_torch.sharding.dtensor import full
+
+    t = full(t.detach()).cpu()  # a DTensor gathered: every rank calls this
     if t.dtype == torch.bfloat16:
         try:
             import ml_dtypes
@@ -197,7 +199,7 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def model_params_from_numpy(cfg, tree, device=None):
+def model_params_from_numpy(cfg, tree, device=None, shardings=None):
     """The port's model module for `cfg` (a `models.transformer` family,
     on `device`, default the card) holding the values of `repro`'s
     parameter pytree `tree` given as numpy (``jax.tree.map(np.asarray,
@@ -206,46 +208,59 @@ def model_params_from_numpy(cfg, tree, device=None):
     ``mamba_units[u][i]``, ``mamba_tail[i]`` and its one ``shared`` block,
     xlstm's ``mlstm[u][i]`` and ``slstm[u]``, whisper's ``enc[i]`` and
     ``dec[i]``, the VLM's ``self_units[u][i]`` and ``cross[u]``. numpy
-    bfloat16 leaves (ml_dtypes) arrive as torch bfloat16, bit for bit."""
+    bfloat16 leaves (ml_dtypes) arrive as torch bfloat16, bit for bit.
+    `shardings` ({port tensor name: `sharding.rules.Sharding`}) places the
+    parameters on a process mesh as DTensors (every rank passes the same
+    `tree` and keeps its shards, cut on the host: only they reach
+    `device`)."""
     from repro_torch.models.transformer import FAMILY_CLASSES
+    from repro_torch.sharding.dtensor import distribute_module
 
     device = resolve_device(device)
     for path, levels in _stacked_paths(cfg, tree).items():
         tree = _with(tree, path, _unstack(_at(tree, path), levels))
-    tensors = _tree_map(lambda a: _tensor_from_numpy(a, device), tree)
-    return FAMILY_CLASSES[cfg.family](cfg, tensors)
+    at = device if shardings is None else torch.device("cpu")
+    tensors = _tree_map(lambda a: _tensor_from_numpy(a, at), tree)
+    module = FAMILY_CLASSES[cfg.family](cfg, tensors)
+    return module if shardings is None else distribute_module(
+        module, shardings, device=device)
 
 
 def model_params_to_numpy(cfg, module):
     """The inverse of `model_params_from_numpy`: `repro`'s pytree layout
     (stacked subtrees restacked) with numpy leaves; bfloat16 leaves as
-    ml_dtypes' bfloat16 where it is installed, else widened to float32."""
+    ml_dtypes' bfloat16 where it is installed, else widened to float32.
+    DTensors are gathered: on a process mesh every rank calls this."""
     tree = _tree_map(_tensor_to_numpy, module.to_tree())
     for path, levels in _stacked_paths(cfg, tree).items():
         tree = _with(tree, path, _restack(_at(tree, path), levels))
     return tree
 
 
-def opt_state_from_numpy(cfg, state, device=None):
+def opt_state_from_numpy(cfg, state, device=None, shardings=None):
     """The port's `optim.optimizer.OptState` for `cfg`'s model from
     `repro`'s ``OptState(mu, nu, step)`` given as numpy
     (``jax.tree.map(np.asarray, state)``): `mu` and `nu` in `repro`'s
     stacked layout become modules of the family's class (as
-    `model_params_from_numpy`), `step` an int32 scalar, on `device`."""
+    `model_params_from_numpy`, placed on `shardings` when given), `step` an
+    int32 scalar, on `device`."""
     from repro_torch.optim.optimizer import OptState
 
     device = resolve_device(device)
     mu, nu, step = state
     return OptState(
-        mu=model_params_from_numpy(cfg, mu, device).requires_grad_(False),
-        nu=model_params_from_numpy(cfg, nu, device).requires_grad_(False),
+        mu=model_params_from_numpy(cfg, mu, device, shardings)
+        .requires_grad_(False),
+        nu=model_params_from_numpy(cfg, nu, device, shardings)
+        .requires_grad_(False),
         step=torch.as_tensor(np.array(step), device=device).to(torch.int32),
     )
 
 
 def opt_state_to_numpy(cfg, state):
     """The inverse of `opt_state_from_numpy`: `repro`'s OptState fields
-    ``(mu, nu, step)`` as numpy, `mu` and `nu` restacked."""
+    ``(mu, nu, step)`` as numpy, `mu` and `nu` restacked (DTensors
+    gathered)."""
     return (model_params_to_numpy(cfg, state.mu),
             model_params_to_numpy(cfg, state.nu),
             state.step.detach().cpu().numpy())

@@ -1,7 +1,8 @@
 """Deterministic, shardable synthetic token pipeline (port of
 `repro.data.pipeline`: `DataConfig`, `TokenPipeline` and `PrefetchIterator`
 are `repro`'s numpy code, so batches are array-equal for every (seed, step,
-shard); `device_put_batch` copies a batch to a torch device).
+shard); `device_put_batch` copies a batch to a torch device, or a rank's
+rows of it onto a process mesh).
 
 Production posture without network access: a seeded generator standing in for
 a tokenized corpus reader. Properties a 1000-node fleet needs and tests
@@ -110,17 +111,35 @@ class PrefetchIterator:
         self._stop.set()
 
 
-def device_put_batch(batch: Dict[str, np.ndarray], device=None
-                     ) -> Dict[str, torch.Tensor]:
+def local_rows(arr: np.ndarray, sharding) -> np.ndarray:
+    """This rank's rows of a global batch array under `sharding` (a
+    `sharding.rules.Sharding`): the pipeline is deterministic in (seed,
+    step), so every rank builds the global batch and keeps its slice."""
+    from repro_torch.sharding.dtensor import local_chunk
+
+    return local_chunk(torch.from_numpy(np.ascontiguousarray(arr)),
+                       sharding.mesh, sharding.placements).numpy()
+
+
+def device_put_batch(batch: Dict[str, np.ndarray], device=None,
+                     shardings=None) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on `device` (default: the card, see
     `core.runtime.resolve_device`). A copy to the card goes through pinned
     host memory and does not block the host; on the CPU the tensors share
-    the arrays' memory."""
+    the arrays' memory. With `shardings` ({name: `sharding.rules.Sharding`}
+    on a process mesh, from `batch_pspecs`) each array becomes a DTensor of
+    which this rank copies only its rows."""
     device = resolve_device(device)
     out = {}
     for name, arr in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        sh = shardings.get(name) if shardings else None
+        t = torch.from_numpy(np.ascontiguousarray(
+            arr if sh is None else local_rows(arr, sh)))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
+        if sh is not None:
+            from repro_torch.sharding.dtensor import wrap
+
+            t = wrap(t, sh.mesh, sh.placements, shape=arr.shape)
         out[name] = t
     return out

@@ -7,7 +7,15 @@ backends: ``index`` (the default, `repro`'s ``jnp``), ``coalesced``,
 ``cuda`` (`repro`'s ``pallas``; it has no gradient and raises under
 training, as ``pallas`` does) or ``auto``. Prints `repro`'s JSON
 (``history``, ``wall_seconds``) with the tokens per second over the whole
-run and the peak device memory (null on the CPU)."""
+run and the peak device memory (null on the CPU).
+
+``--mesh data,model`` trains sharded on a process mesh of that shape, one
+rank a process, started by ``python -m torch.distributed.run
+--nproc-per-node <data*model> -m repro_torch.launch.train ... --mesh d,m``:
+NCCL on the cards, gloo with ``--device cpu`` (a mesh of one rank needs no
+launcher). Every rank trains; rank 0 prints the JSON once every rank has
+finished, with the mesh's shape.
+"""
 from __future__ import annotations
 
 import argparse
@@ -18,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.models import build_model
 from repro_torch.models.transformer import Runtime
 from repro_torch.optim.optimizer import OptConfig
@@ -41,7 +50,21 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["index", "coalesced", "cuda", "auto"])
     ap.add_argument("--device", type=str, default="cuda",
                     choices=["cuda", "cpu"])
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="data,model: train on a process mesh")
     return ap
+
+
+def _mesh_shape(spec: str):
+    parts = [p.strip() for p in spec.replace("x", ",").split(",")]
+    try:
+        sizes = tuple(int(p) for p in parts)
+    except ValueError:
+        sizes = ()
+    if len(sizes) != 2 or min(sizes) < 1:
+        raise ValueError(f"--mesh expects two positive sizes 'data,model', "
+                         f"got {spec!r}")
+    return sizes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -51,11 +74,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         cfg = cfg.reduced()
     model = build_model(cfg)
     rt = Runtime(remat=args.remat, embed_backend=args.embed_backend)
+    mesh = None
+    if args.mesh is not None:
+        mesh = make_process_mesh(*_mesh_shape(args.mesh),
+                                 device=args.device)
     if args.device == "cuda" and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
 
     out = train(
         model,
+        mesh=mesh,
         rt=rt,
         opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
         tcfg=TrainConfig(
@@ -72,7 +100,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     )
     device = out["device"]
     tokens = out["steps"] * args.batch * args.seq
-    print(json.dumps({
+    summary = {
         "history": out["history"],
         "wall_seconds": out["wall_seconds"],
         "tokens_per_s": tokens / out["wall_seconds"]
@@ -80,7 +108,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else None,
         "device": str(device),
-    }, indent=2))
+    }
+    if mesh is None:
+        print(json.dumps(summary, indent=2))
+        return out
+    import torch.distributed as dist
+
+    summary["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dist.barrier()  # every rank has trained
+    if dist.get_rank() == 0:
+        print(json.dumps(summary, indent=2), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
     return out
 
 

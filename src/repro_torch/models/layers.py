@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.indirect_stream import coalesced_gather
+from repro_torch.sharding.dtensor import einsum as sharded_einsum
+from repro_torch.sharding.dtensor import is_dtensor, keep_only, \
+    vocab_lookup
 
 # A tensor drawn at once holds at most this many elements; larger ones (the
 # stacked experts of a full-width MoE layer) are drawn slice by slice along
@@ -42,8 +45,13 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with mixed dtypes promoted first."""
-    return torch.einsum(eq, *_promoted(*ops))
+    """``torch.einsum`` with mixed dtypes promoted first; on DTensor
+    operands (a process mesh) contracted shard by shard
+    (`sharding.dtensor.einsum`)."""
+    ops = _promoted(*ops)
+    if any(is_dtensor(o) for o in ops):
+        return sharded_einsum(eq, *ops)
+    return torch.einsum(eq, *ops)
 
 
 def _normal(generator, shape, device, scale: float, dtype) -> torch.Tensor:
@@ -128,10 +136,16 @@ def embedding_apply(
     `core.gather_engine.get_gather_engine` (an LRU of engines keyed on the
     stream's digest): the port runs eagerly, so each new batch of ids is
     planned on the host, where `repro`'s jitted decode step plans in the
-    trace."""
+    trace. On a DTensor table (a process mesh; the vocab sharded over
+    'model') the index backend is `sharding.dtensor.vocab_lookup`: each
+    rank looks up the ids in its vocab shard and the rows are summed over
+    the shards, the same rows as ``table[ids]``."""
     table = p["embed"]
     if backend == "index":
-        return table[token_ids.to(device=table.device, dtype=torch.int64)]
+        ids = token_ids.to(device=table.device, dtype=torch.int64)
+        if is_dtensor(table):
+            return vocab_lookup(table, ids)
+        return table[ids]
     return coalesced_gather(table, token_ids, window=window,
                             block_rows=block_rows, backend=backend)
 
@@ -208,6 +222,9 @@ def _sdpa(
     Hkv = k.shape[2]
     group = H // Hkv
     qg = q.reshape(B, Sq, Hkv, group, hd)
+    # on a process mesh: batch and kv heads only stay sharded, so the
+    # result merges (heads, head_dim) with the heads leading
+    qg, k, v = (keep_only(t, (0, 2)) for t in (qg, k, v))
     scores = einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
     scores = scores * (hd**-0.5)
     if mask is not None:
@@ -215,7 +232,7 @@ def _sdpa(
         scores = torch.where(mask[:, :, None, :, :], scores,
                              torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(B, Sq, H, v.shape[-1])  # v head dim may differ (MLA)
 
 

@@ -24,7 +24,7 @@ from .transformer import (
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    init: Callable[..., Any]  # (generator, device) -> the family's module
+    init: Callable[..., Any]  # (generator, device, place) -> the module
     forward: Callable[..., Any]  # (params, batch, rt) -> (logits, aux)
     init_cache: Callable[..., Any]  # (batch, max_len, rt, device) -> cache
     decode_step: Callable[..., Any]  # (params, tokens, cache, rt) -> (logits, cache)
@@ -96,6 +96,26 @@ def make_input_batch(
             (batch_size, cfg.cross_attn.n_image_tokens, cfg.d_model),
             generator=generator, device=device) * 0.02
     return batch
+
+
+def param_shapes(cfg: ArchConfig):
+    """The family module of `cfg` with its parameters on the ``meta``
+    device (shapes and dtypes, nothing allocated): the port's
+    ``jax.eval_shape(model.init, key)``."""
+    from .transformer import FAMILY_CLASSES
+
+    cls = FAMILY_CLASSES[cfg.family]
+    return cls(cfg, cls.init_tree(cfg, torch.Generator(),
+                                  torch.device("meta")))
+
+
+def cache_shapes(cfg: ArchConfig, batch_size: int, s_max: int,
+                 rt: Runtime):
+    """`cfg`'s decode cache on the ``meta`` device (shapes and dtypes)."""
+    from .transformer import FAMILY_CLASSES
+
+    return FAMILY_CLASSES[cfg.family].empty_cache(
+        cfg, batch_size, s_max, rt, torch.device("meta"))
 
 
 def input_specs(

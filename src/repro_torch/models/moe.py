@@ -23,6 +23,7 @@ may differ from XLA's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gather_engine import get_gather_engine
+from repro_torch.sharding.dtensor import replicated
 
 from .layers import _dense_init, einsum, ffn_apply, init_ffn, mm
 
@@ -63,7 +65,15 @@ def _route(p, xf: torch.Tensor, k: int):
 
 def _build_buf(xf, w, idx, *, E, k, C):
     """Coalescing front half for ONE token shard: sort by expert, scatter into
-    capacity slabs. Returns (buf (E,C,D), slot, in_cap, st, sw, counts)."""
+    capacity slabs. Returns (buf (E,C,D), slot, in_cap, st, sw, counts). On
+    a process mesh it runs on the replicated tokens (the sort is global over
+    the shard's tokens, as `repro`'s is; DTensor has no rule for some of its
+    ops on every torch)."""
+    return replicated(functools.partial(_build_buf_local, E=E, k=k, C=C),
+                      xf, w, idx)
+
+
+def _build_buf_local(xf, w, idx, *, E, k, C):
     T, D = xf.shape
     dev = xf.device
     # ---- coalesce: sort assignments by expert (block) id
@@ -95,7 +105,13 @@ def _expert_ffn(buf, w_in_e, w_gate_e, w_out_e, lead=""):
 
 
 def _combine_one_shard(out, slot, in_cap, st, sw, *, T, E, C):
-    """Back half: response splitter — offsets -> original token order."""
+    """Back half: response splitter — offsets -> original token order (on a
+    process mesh on replicated values, as the front half)."""
+    return replicated(functools.partial(_combine_local, T=T, E=E, C=C),
+                      out, slot, in_cap, st, sw)
+
+
+def _combine_local(out, slot, in_cap, st, sw, *, T, E, C):
     D = out.shape[-1]
     out_flat = out.reshape(E * C, D)
     gathered = torch.where(

@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _dense_init, _normal, init_rmsnorm, mm, rmsnorm_apply
+from .layers import _dense_init, _normal, einsum, init_rmsnorm, mm, \
+    rmsnorm_apply
 
 
 def init_mamba2(generator, d_model: int, ssm, dtype, *, device=None) -> dict:
@@ -42,13 +43,23 @@ def init_mamba2(generator, d_model: int, ssm, dtype, *, device=None) -> dict:
     }
 
 
+def _pad_seq(x: torch.Tensor, *, before: int = 0, after: int = 0):
+    """`x` (B, S, ...) with zeros before and after its sequence: the values
+    of ``F.pad``, as a cat, which DTensor shards on every torch (torch
+    2.11's rule for ``F.pad`` fails on a 2-D mesh)."""
+    def zeros(n):
+        return x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+
+    return torch.cat([zeros(before), x, zeros(after)], dim=1)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None):
     """Depthwise causal conv. x: (B, S, C); w: (K, C). state: (B, K-1, C) tail
     of previous tokens (decode). Returns (y, new_state)."""
     K = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, K - 1, 0))
+        xp = _pad_seq(x, before=K - 1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i : i + x.shape[1]] * w[i] for i in range(K))
@@ -89,14 +100,14 @@ def _ssd_chunked(
     ratio = torch.where(tri[None, None, :, :, None], ratio,
                         torch.full_like(ratio, float("-inf")))
     dec = torch.exp(ratio)
-    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    cb = einsum("bctn,bcsn->bcts", Cc, Bc)
     w = cb[..., None] * dec * dtc[:, :, None, :, :]  # (B,nc,t,s,H)
-    y_intra = torch.einsum("bctsh,bcshp->bcthp", w, xc)
+    y_intra = einsum("bctsh,bcshp->bcthp", w, xc)
 
     # --- chunk states: H_c = decay_all * H_{c-1} + sum_s exp(seg_L - seg_s)
     # dt_s B_s (x) x_s
     tail = torch.exp(seg[:, :, -1:, :] - seg)  # (B,nc,L,H)
-    contrib = torch.einsum("bcsh,bcsn,bcshp->bchnp", tail * dtc, Bc, xc)
+    contrib = einsum("bcsh,bcsn,bcshp->bchnp", tail * dtc, Bc, xc)
     decay_all = torch.exp(seg[:, :, -1, :])  # (B,nc,H)
 
     h = (torch.zeros((Bsz, H, N, P), dtype=f32, device=xh.device)
@@ -108,7 +119,7 @@ def _ssd_chunked(
     h_prevs = torch.stack(h_prevs, dim=1)  # (B,nc,H,N,P)
 
     # --- inter-chunk: y_t += exp(seg_t) * C_t . H_{c-1}
-    y_inter = torch.einsum("bctn,bchnp->bcthp", Cc, h_prevs) * torch.exp(
+    y_inter = einsum("bctn,bchnp->bcthp", Cc, h_prevs) * torch.exp(
         seg)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     return y.to(xh.dtype), h
@@ -149,10 +160,8 @@ def mamba2_apply(
         L = min(ssm.chunk, S)
         pad = (-S) % L
         if pad:
-            xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dt_p = F.pad(dtf, (0, 0, 0, pad))
-            B_p = F.pad(Bm, (0, 0, 0, pad))
-            C_p = F.pad(Cm, (0, 0, 0, pad))
+            xh_p, dt_p, B_p, C_p = (_pad_seq(t, after=pad)
+                                    for t in (xh, dtf, Bm, Cm))
         else:
             xh_p, dt_p, B_p, C_p = xh, dtf, Bm, Cm
         y, h_last = _ssd_chunked(xh_p, dt_p, dt_p * a, B_p, C_p, L)
@@ -164,10 +173,9 @@ def mamba2_apply(
         for t in range(S):
             dtt, bt, ct = dtf[:, t], Bm[:, t].to(f32), Cm[:, t].to(f32)
             alpha = torch.exp(dtt * a)  # (B,H)
-            upd = torch.einsum("bh,bn,bhp->bhnp", dtt, bt,
-                               xh[:, t].to(f32))
+            upd = einsum("bh,bn,bhp->bhnp", dtt, bt, xh[:, t].to(f32))
             h = h * alpha[:, :, None, None] + upd
-            ys.append(torch.einsum("bn,bhnp->bhp", ct, h))
+            ys.append(einsum("bn,bhnp->bhp", ct, h))
         h_last = h
         y = torch.stack(ys, dim=1).to(x.dtype)
 

@@ -26,6 +26,7 @@ cache), and ``cache["index"]`` is a Python int.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional
@@ -172,10 +173,23 @@ def _layer(rt: "Runtime", fn: Callable, *args):
     raise ValueError(f"remat must be none, full or dots, got {rt.remat!r}")
 
 
+# what `_Family.init` places each layer with as it is drawn, while it runs
+_PLACE: contextvars.ContextVar = contextvars.ContextVar("place",
+                                                        default=None)
+
+
+def _drawn(layer):
+    """A layer's tree as soon as it is drawn, through the ``place`` of
+    `_Family.init` when one is set."""
+    place = _PLACE.get()
+    return layer if place is None else place(layer)
+
+
 def _stack_init(init_one: Callable[[], Any], n: int) -> list:
     """`repro` vmaps an init over n split keys into one stacked tree; here n
-    trees, drawn in turn from the one generator."""
-    return [init_one() for _ in range(n)]
+    trees, drawn in turn from the one generator, each `_drawn` before the
+    next."""
+    return [_drawn(init_one()) for _ in range(n)]
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -206,13 +220,22 @@ class _Family(ParamDict):
 
     @classmethod
     def init(cls, cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-             device=None):
+             device=None, place: Optional[Callable] = None):
         """Parameters drawn from `generator` on `device` (default the card;
-        the generator must live there; default: seed 0)."""
+        the generator must live there; default: seed 0). `place` (a tree
+        -> tree, `sharding.dtensor.place_tree` on a mesh) takes each layer
+        as soon as it is drawn, then the whole tree: the draws are the
+        same, and no more than one layer and the parameters outside the
+        layers are ever whole at once."""
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        return cls(cfg, cls.init_tree(cfg, generator, device))
+        token = _PLACE.set(place)
+        try:
+            tree = cls.init_tree(cfg, generator, device)
+        finally:
+            _PLACE.reset(token)
+        return cls(cfg, tree if place is None else place(tree))
 
     def _embed(self, tokens, rt: Runtime):
         # `repro`'s non-decoder families embed at the default window and
@@ -223,8 +246,8 @@ class _Family(ParamDict):
 def _builder(cls, cfg: ArchConfig):
     """`repro`'s builder tuple over a family module class."""
 
-    def init(generator=None, device=None):
-        return cls.init(cfg, generator, device)
+    def init(generator=None, device=None, place=None):
+        return cls.init(cfg, generator, device, place)
 
     def forward(p, batch, rt: Runtime):
         return p.forward(batch, rt)
@@ -363,7 +386,7 @@ class DecoderLM(_Family):
                                     device=device),
             "final_norm": L.init_rmsnorm(cfg.d_model, dt, device=device),
             "lead": [
-                _init_dense_layer(cfg, gen, device, d_ff=lead_dff)
+                _drawn(_init_dense_layer(cfg, gen, device, d_ff=lead_dff))
                 for _ in range(n_lead)
             ],
             "units": {

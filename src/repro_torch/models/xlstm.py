@@ -19,8 +19,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _dense_init, _normal, init_rmsnorm, mm, rmsnorm_apply
-from .ssm import _causal_conv, _ssd_chunked
+from repro_torch.sharding.dtensor import keep_only
+
+from .layers import _dense_init, _normal, einsum, init_rmsnorm, mm, \
+    rmsnorm_apply
+from .ssm import _causal_conv, _pad_seq, _ssd_chunked
 
 _GATE_CLAMP = 12.0  # stabilizes exp input gates within chunks
 
@@ -89,11 +92,11 @@ def mlstm_apply(
         pad = (-S) % L
 
         def per_head(t):  # (B, S, H, ...) -> (B*H, S+pad, ...)
-            t = t.movedim(2, 1)
+            # heads merge into the batch: on a process mesh only the batch
+            # stays sharded
+            t = keep_only(t, (0,)).movedim(2, 1)
             t = t.reshape((Bsz * H,) + t.shape[2:])
-            if pad:
-                t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-            return t
+            return _pad_seq(t, after=pad) if pad else t
 
         # per-head k/q streams: _ssd_chunked takes shared (B,S,N) B/C, so
         # heads fold into the batch with one ssd head each (N = P)
@@ -101,17 +104,20 @@ def mlstm_apply(
             per_head(v_aug)[:, :, None, :], per_head(ig)[:, :, None],
             per_head(logf)[:, :, None], per_head(k), per_head(q), L,
         )  # y_aug: (B*H, S+pad, 1, P+1); mem: (B*H, 1, P, P+1)
-        y_aug = y_aug[:, :S, 0].reshape(Bsz, H, S, P + 1).movedim(1, 2)
-        mem = mem[:, 0].reshape(Bsz, H, P, P + 1)
+        # the heads split back out of the batch, sharded as the batch was
+        # (so the gradients' merge back is too)
+        y_aug = keep_only(y_aug[:, :S, 0].reshape(Bsz, H, S, P + 1),
+                          (0,)).movedim(1, 2)
+        mem = keep_only(mem[:, 0].reshape(Bsz, H, P, P + 1), (0,))
     else:
         m = state["mem"].to(f32)
         ys = []
         for t in range(S):
             kt, qt = k[:, t].to(f32), q[:, t].to(f32)
-            m = m * torch.exp(logf[:, t])[:, :, None, None] + torch.einsum(
+            m = m * torch.exp(logf[:, t])[:, :, None, None] + einsum(
                 "bhp,bhn->bhpn", kt, v_aug[:, t].to(f32)
             ) * ig[:, t][:, :, None, None]
-            ys.append(torch.einsum("bhp,bhpn->bhn", qt, m))
+            ys.append(einsum("bhp,bhpn->bhn", qt, m))
         mem = m
         y_aug = torch.stack(ys, dim=1)
 
@@ -181,7 +187,7 @@ def slstm_apply(
     b = p["b_gates"].reshape(4, n_heads, P)
     hs = []
     for t in range(S):
-        rec = torch.einsum("ghpq,bhq->bghp", r, h)  # (B,4,H,P)
+        rec = einsum("ghpq,bhq->bghp", r, h)  # (B,4,H,P)
         pre = wx[:, t].to(f32) + rec + b
         it, ft, zt, ot = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
         log_f = F.logsigmoid(ft)

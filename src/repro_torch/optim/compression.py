@@ -15,6 +15,8 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.sharding.dtensor import like, replicate, replication
+
 from .tree import leaves, map_tree, named_tensors
 
 
@@ -34,25 +36,32 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def compress_with_feedback(grads: Any, residual: Any) -> Tuple[Any, Any]:
     """Quantize (grads + residual) per `repro` leaf; return (dequantized
     grads, in the gradients' dtypes, to feed the cross-pod all-reduce; new
-    residual). Both are new trees of the gradients' structure."""
+    residual). Both are new trees of the gradients' structure.
+
+    On DTensors the gradient is taken on its residual's layout first (a
+    pending data-axis ``Partial(sum)`` reduced: the data-reduced gradient
+    is compressed, as `repro` sees one global array), and the scale comes
+    from the leaf's global max, replicated over the mesh."""
     G, R = named_tensors(grads), named_tensors(residual)
     dq, res = {}, {}
-    for leaf in leaves(grads):
-        gf = {n: G[n].to(torch.float32) + R[n] for n in leaf.names}
-        amax = torch.stack([torch.max(torch.abs(t)) for t in gf.values()])
-        scale = torch.clamp(amax.max(), min=1e-12) / 127.0
-        for n, t in gf.items():
-            d = dequantize_int8(
-                torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8),
-                scale)
-            dq[n], res[n] = d.to(G[n].dtype), t - d
+    with replication(grads):
+        for leaf in leaves(grads):
+            gf = {n: like(G[n], R[n]).to(torch.float32) + R[n]
+                  for n in leaf.names}
+            amax = torch.stack([replicate(torch.max(torch.abs(t)))
+                                for t in gf.values()])
+            scale = torch.clamp(amax.max(), min=1e-12) / 127.0
+            for n, t in gf.items():
+                d = dequantize_int8(torch.clamp(torch.round(t / scale), -127,
+                                                127).to(torch.int8), scale)
+                dq[n], res[n] = d.to(G[n].dtype), t - d
     take = lambda g, t: t  # noqa: E731  (the tensor of that name)
     return map_tree(take, grads, dq), map_tree(take, grads, res)
 
 
 def init_residual(params: Any) -> Any:
-    return map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def topk_sparsify(x: torch.Tensor, frac: float = 0.01) -> torch.Tensor:

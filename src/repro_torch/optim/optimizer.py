@@ -7,7 +7,8 @@ gradients, float32 bias corrections, decoupled weight decay on every leaf,
 the result cast back to the parameter's dtype. `repro` returns new trees;
 here the parameters and the moments are updated in place under
 `torch.no_grad()` and returned. The moments are trees of the parameters'
-structure (for a family module, a module of its class)."""
+structure (for a family module, a module of its class); on a process mesh
+they are DTensors on their parameters' layouts."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +16,8 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+
+from repro_torch.sharding.dtensor import replicate, replication
 
 from .tree import leaves, map_tree, named_tensors
 
@@ -42,8 +45,8 @@ def _device(tree) -> torch.device:
 
 
 def init_opt_state(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    # zeros_like: a DTensor parameter's moments are DTensors on its layout
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return OptState(
         mu=map_tree(zeros, params),
         nu=map_tree(zeros, params),
@@ -66,14 +69,18 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, summed leaf by
-    leaf in `repro`'s order."""
+    leaf in `repro`'s order, each tensor in row-major order (a gradient
+    that autograd laid out transposed is summed from a contiguous copy, so
+    the norm's bits do not depend on the layout). On DTensors each rank
+    sums its shards and the total is reduced over the mesh into a
+    replicated scalar."""
     named = named_tensors(tree)
     total = None
     for leaf in leaves(tree):
-        s = sum(torch.sum(torch.square(named[n].to(torch.float32)))
-                for n in leaf.names)
+        s = sum(torch.sum(torch.square(
+            named[n].to(torch.float32).contiguous())) for n in leaf.names)
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return torch.sqrt(replicate(total))
 
 
 @torch.no_grad()
@@ -87,7 +94,14 @@ def adamw_update(
 ):
     """One AdamW step on `params` with `grads` (a tree of the same
     structure). Updates `params`, ``state.mu``, ``state.nu`` and
-    ``state.step`` in place; returns (params, state, metrics)."""
+    ``state.step`` in place; returns (params, state, metrics). DTensor
+    parameters take gradients and moments on their own layouts; the
+    schedule's scalars meet them as replicated values."""
+    with replication(params):
+        return _adamw_update(cfg, params, grads, state, grad_scale)
+
+
+def _adamw_update(cfg, params, grads, state, grad_scale):
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     scale = clip if grad_scale is None else clip * grad_scale

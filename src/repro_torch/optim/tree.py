@@ -71,14 +71,17 @@ def keystr(path) -> str:
                    for c in path)
 
 
-def leaves(tree) -> List[Leaf]:
+def leaves(tree, stacked=None) -> List[Leaf]:
     """`repro`'s leaves of `tree` in `jax.tree_util` flatten order. A
     family module (one with a ``cfg``) groups each stacked subtree's
-    per-layer tensors into one leaf; anything else has one leaf a tensor."""
+    per-layer tensors into one leaf; so does `stacked` for any other tree
+    (the path of each subtree `repro` stacks -> its number of stacked axes,
+    as for a decode cache); without either, each tensor is a leaf."""
     names = list(named_tensors(tree))
-    cfg = getattr(tree, "cfg", None)
-    stacked = (_stacked_paths(cfg, tree.to_tree()) if cfg is not None
-               else {})
+    if stacked is None:
+        cfg = getattr(tree, "cfg", None)
+        stacked = (_stacked_paths(cfg, tree.to_tree()) if cfg is not None
+                   else {})
     groups: Dict[tuple, list] = {}
     for name in names:
         comps = tuple(_component(c) for c in name.split("."))

@@ -1,8 +1,8 @@
 """Fault tolerance & elasticity for long-running multi-pod jobs (port of
 `repro.train.fault_tolerance`: `HeartbeatMonitor` and `StragglerPolicy` are
 `repro`'s code; `run_with_recovery` runs on the port's checkpoint, which
-restores into the state's own tensors. `repro`'s `remesh_shardings`, the
-elastic re-shard onto a new mesh, waits for the port's sharded step).
+restores into the state's own tensors, re-placed onto `shardings` when
+given; `remesh_shardings` places a spec tree on a new process mesh).
 
 What a 1000+-node fleet needs, implemented and unit-tested here (the fleet
 control plane is simulated — this container has one host — but every policy
@@ -22,6 +22,7 @@ import dataclasses
 import time
 from typing import Callable, Dict, Optional
 
+from repro_torch.sharding.rules import to_shardings
 from repro_torch.train.checkpoint import AsyncCheckpointer, restore_latest
 
 
@@ -91,6 +92,7 @@ def run_with_recovery(
     total_steps: int,
     ckpt_dir: str,
     ckpt_every: int = 50,
+    shardings=None,
     max_restarts: int = 3,
     on_step: Optional[Callable[[int, object], None]] = None,
 ):
@@ -99,7 +101,10 @@ def run_with_recovery(
     `train_one_step(state, step)` may raise (simulated node failure in
     tests); the loop restores the newest complete checkpoint into the state
     and resumes after its step (from `init_state()` at step 0 when there is
-    none)."""
+    none). Restore places the state's module tensors on `shardings` ({name:
+    `sharding.rules.Sharding`}) — pass shardings built from the CURRENT
+    mesh (`remesh_shardings`) to get elastic re-sharding on a changed
+    device count."""
     if ckpt_every < 1:
         # Fail fast: `step % ckpt_every` would otherwise ZeroDivisionError
         # only once training reaches the first step — long after launch.
@@ -108,7 +113,7 @@ def run_with_recovery(
     restarts = 0
     state = init_state()
     start = 0
-    restored = restore_latest(ckpt_dir, state)
+    restored = restore_latest(ckpt_dir, state, shardings=shardings)
     if restored is not None:
         start, state = restored
         start += 1
@@ -128,7 +133,7 @@ def run_with_recovery(
                 ckpt.wait()
                 raise
             ckpt.wait()
-            restored = restore_latest(ckpt_dir, state)
+            restored = restore_latest(ckpt_dir, state, shardings=shardings)
             if restored is None:
                 state = init_state()
                 step = 0
@@ -137,3 +142,10 @@ def run_with_recovery(
                 step += 1
     ckpt.wait()
     return state
+
+
+def remesh_shardings(pspecs, mesh):
+    """Shardings for an existing {name: spec} map (`sharding.rules.
+    tensor_pspecs`) on a NEW process mesh — the elastic-rescale hook (device
+    count changed between runs)."""
+    return to_shardings(pspecs, mesh)

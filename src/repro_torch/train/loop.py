@@ -1,16 +1,23 @@
 """Training loop (port of `repro.train.loop`): microbatched
 (gradient-accumulation) training with checkpoint/restart, async saves,
 optional error-feedback gradient compression and straggler accounting, on
-one device.
+one device or on a (data, model) process mesh.
 
 Gradients come from `torch.autograd.grad` per microbatch and are summed
 into float32 accumulators, as `repro` sums into float32 zeros (``.grad``
-would accumulate in the parameters' dtype, bf16 at full width). A mesh of
-more than one device raises: the sharded step is the next slice of the
-port (ROADMAP A1)."""
+would accumulate in the parameters' dtype, bf16 at full width).
+
+On a process mesh (`launch.mesh.make_process_mesh`) the parameters and the
+AdamW moments are DTensors placed by `sharding.rules.param_pspecs`, each
+rank keeps its rows of the batch by `batch_pspecs`, and the same update
+runs on them: DTensor inserts the collectives `repro`'s pjit leaves to
+XLA, and each gradient is reduced onto its parameter's layout before the
+optimizer sees it. Metrics come back as replicated scalars on every rank.
+"""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -26,6 +33,9 @@ from repro_torch.optim.compression import compress_with_feedback, \
 from repro_torch.optim.optimizer import OptConfig, OptState, adamw_update, \
     init_opt_state
 from repro_torch.optim.tree import map_tree, named_tensors
+from repro_torch.sharding.dtensor import distribute, full, is_dtensor, \
+    like, mesh_device, place_tree, replicate, replication
+from repro_torch.sharding.rules import Sharding, batch_pspecs, to_shardings
 from repro_torch.train.checkpoint import AsyncCheckpointer, restore_latest
 
 
@@ -43,15 +53,29 @@ class TrainConfig:
 def value_and_grad(loss_fn: Callable, params) -> Tuple[torch.Tensor, Any]:
     """(loss, grads): ``loss_fn(params)`` detached and its gradients as a
     tree of the parameters' structure (zeros for a parameter the loss does
-    not use, as ``jax.grad`` gives)."""
+    not use, as ``jax.grad`` gives). On DTensor parameters each gradient
+    comes back on its parameter's layout (the data-axis reduction done) and
+    the loss replicated."""
     named = named_tensors(params)
-    with torch.enable_grad():
+    with torch.enable_grad(), replication(params):
         loss = loss_fn(params)
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
-    by_name = dict(zip(named, grads))
-    return loss.detach(), map_tree(lambda p, g: g, params, by_name)
+    by_name = {n: like(g, named[n]) for n, g in zip(named, grads)}
+    return replicate(loss.detach()), map_tree(lambda p, g: g, params,
+                                              by_name)
+
+
+def _microbatch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows ``[i*B/n, (i+1)*B/n)`` of a batch tensor, `repro`'s reshape to
+    (n, B/n, ...) indexed at i; a DTensor batch's microbatch is sharded as
+    the batch is (its ids gathered first: a collective)."""
+    if not is_dtensor(v):
+        return v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
+    whole = full(v)
+    part = whole.reshape((n, whole.shape[0] // n) + tuple(whole.shape[1:]))
+    return distribute(part[i], Sharding(v.device_mesh, v.placements))
 
 
 def make_update_fn(model: Model, opt_cfg: OptConfig, rt: Runtime,
@@ -68,13 +92,12 @@ def make_update_fn(model: Model, opt_cfg: OptConfig, rt: Runtime,
     def update(params, opt_state: OptState, residual, batch):
         n = tcfg.microbatches
         if n > 1:
-            gsum = map_tree(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = map_tree(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             acc = named_tensors(gsum)
             lsum = None
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
-                      [i] for k, v in batch.items()}
+                mb = {k: _microbatch(v, n, i) for k, v in batch.items()}
                 loss, grads = value_and_grad(loss_on(mb), params)
                 for name, g in named_tensors(grads).items():
                     acc[name].add_(g)
@@ -98,17 +121,33 @@ def make_update_fn(model: Model, opt_cfg: OptConfig, rt: Runtime,
     return update
 
 
+def _process_mesh(mesh) -> bool:
+    """Whether `mesh` is a ``torch.distributed`` process mesh (a
+    ``DeviceMesh`` with named dims), not a grid of devices in one
+    process."""
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
 def _single_device(mesh, device):
     if mesh is None:
         return resolve_device(device)
     devices = list(mesh.devices.reshape(-1))
     if len(devices) > 1:
-        raise NotImplementedError(
-            f"train on a mesh of {len(devices)} devices: the sharded "
-            f"training step (sharding rules, a multi-device step on a torch "
-            f"process grid) is not ported yet (ROADMAP A1); pass mesh=None "
-            f"or a one-device mesh")
+        raise ValueError(
+            f"train on a grid of {len(devices)} devices in one process: "
+            f"training shards over a process mesh, one rank a device "
+            f"(launch.mesh.make_process_mesh under torch.distributed.run); "
+            f"pass that, mesh=None or a one-device mesh")
     return resolve_device(devices[0])
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """This rank's device on a process mesh (`sharding.dtensor.
+    mesh_device`), which `device`, when given, must agree with."""
+    dev = mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} on a {mesh.device_type} mesh")
+    return dev
 
 
 def train(
@@ -123,17 +162,28 @@ def train(
     device=None,
 ) -> Dict[str, Any]:
     """End-to-end training on `device` (default the card; a one-device
-    `mesh` names it instead). Returns summary metrics (final loss,
-    history) with the trained parameters and optimizer state."""
-    device = _single_device(mesh, device)
+    `mesh` of `launch.mesh` names it instead), or sharded over a process
+    mesh (`launch.mesh.make_process_mesh`; every rank of it calls this).
+    Returns summary metrics (final loss, history) with the trained
+    parameters and optimizer state (DTensors on a process mesh)."""
+    sharded = _process_mesh(mesh)
+    device = _mesh_device(mesh, device) if sharded \
+        else _single_device(mesh, device)
     cfg = model.cfg
     data_cfg = data_cfg or DataConfig(
         vocab_size=cfg.vocab_size, seq_len=128, global_batch=8
     )
     pipeline = TokenPipeline(data_cfg)
 
-    params = model.init(torch.Generator(device=device).manual_seed(seed),
-                        device=device)
+    # every rank draws the same parameters from the seed and keeps its
+    # shards of them, placing each layer as it is drawn
+    params = model.init(
+        torch.Generator(device=device).manual_seed(seed), device=device,
+        place=functools.partial(place_tree, mesh=mesh) if sharded else None)
+    batch_sh = None
+    if sharded:
+        batch_sh = to_shardings(
+            batch_pspecs(pipeline.batch_at(0), mesh), mesh)
     opt_state = init_opt_state(params)
     residual = init_residual(params) if tcfg.grad_compression else None
 
@@ -155,7 +205,7 @@ def train(
     slow_steps = 0
     for step in range(start_step, tcfg.total_steps):
         t0 = time.time()
-        batch = device_put_batch(next(it), device)
+        batch = device_put_batch(next(it), device, shardings=batch_sh)
         params, opt_state, residual, metrics = update(
             params, opt_state, residual, batch
         )

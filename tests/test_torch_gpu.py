@@ -1020,3 +1020,52 @@ def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
                                if t.dtype == torch.bfloat16 else b[name],
                                t.view(torch.uint8)
                                if t.dtype == torch.bfloat16 else t), name
+
+
+
+def test_sharded_step_on_a_one_card_mesh_equals_the_unsharded_step(cuda):
+    """A 1x1 NCCL process mesh: the parameters become DTensors placed by
+    `param_pspecs`, and one `make_update_fn` update on them equals the
+    update of the same parameters as plain tensors on the card (loss and
+    parameters within 1e-6 relative; the mesh's collectives are on one
+    rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, \
+        device_put_batch
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import Runtime
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.sharding.dtensor import distribute_module, full, \
+        is_dtensor
+    from repro_torch.sharding.rules import batch_pspecs, param_shardings, \
+        to_shardings
+    from repro_torch.train.loop import TrainConfig, make_update_fn
+
+    cfg, model, pairs = _train_pair(cuda)
+    plain, batch = pairs[1]
+    sharded = _train_pair(cuda)[2][1][0]  # the same values, another copy
+    update = make_update_fn(model, OptConfig(), Runtime(), TrainConfig())
+    _, _, _, want = update(plain, init_opt_state(plain), None, batch)
+    try:
+        mesh = make_process_mesh(1, 1)
+        distribute_module(sharded, param_shardings(sharded, mesh))
+        assert all(is_dtensor(p) for p in sharded.parameters())
+        host = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=4)
+                             ).batch_at(2)
+        dbatch = device_put_batch(host, cuda, shardings=to_shardings(
+            batch_pspecs(host, mesh), mesh))
+        _, opt, _, got = update(sharded, init_opt_state(sharded), None,
+                                dbatch)
+        assert all(is_dtensor(m) for m in opt.mu.parameters())
+        assert float(got["loss"]) == pytest.approx(float(want["loss"]),
+                                                   rel=1e-6)
+        ref = named_tensors(plain)
+        for name, t in named_tensors(sharded).items():
+            torch.testing.assert_close(full(t.detach()), ref[name].detach(),
+                                       rtol=1e-6, atol=1e-6, msg=name)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -103,6 +103,21 @@ def test_global_norm_matches_repro():
                                float(jo.global_norm(arrays)), rtol=1e-6)
 
 
+def test_global_norm_of_a_transposed_gradient_is_its_copys_bitwise():
+    """A gradient autograd laid out transposed (a column-major view) has
+    the norm of its row-major copy, bit for bit: the sum runs in row-major
+    order whatever the layout, so a sharded step and the single-card step
+    agree on it."""
+    # a draw whose norm, summed in column-major order, is one ulp off
+    cols = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, 48)).astype(np.float32))
+    view, copy = {"w": cols.t()}, {"w": cols.t().contiguous()}
+    assert not view["w"].is_contiguous()
+    got, want = to.global_norm(view), to.global_norm(copy)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.view(torch.int32).item() == want.view(torch.int32).item()
+
+
 @pytest.mark.parametrize("grad_scale", [None, 0.5])
 def test_adamw_update_matches_repro_over_steps(grad_scale):
     """Five steps on a mixed tree: parameters (bf16 leaves bitwise equal

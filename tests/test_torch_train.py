@@ -386,10 +386,13 @@ def test_train_resumes_from_its_checkpoint(tmp_path):
 
 
 def test_train_on_a_mesh_of_more_than_one_device_raises():
+    """A grid of devices driven from one process (the sharded SpMV
+    engine's mesh) cannot train: training shards over a process mesh, one
+    rank a device (`test_torch_train_sharded.py`)."""
     cfg = get_arch("smollm-360m").reduced()
     mesh = DeviceMesh(np.array([[torch.device("cpu")],
                                 [torch.device("cpu")]], dtype=object))
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    with pytest.raises(ValueError, match="make_process_mesh"):
         train(build_model(cfg), mesh=mesh)
 
 
