@@ -197,9 +197,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    --reduced --mesh 2,2 --device cpu --steps 4``: four gloo ranks of the
    2x2 grid under the machine's torch, `repro`'s JSON printed once with
    finite losses.
+14. The dry-run (`repro_torch.launch.dryrun`; nothing allocated on the
+   card, no kernel launched): (a) every arch x applicable shape (32 cells)
+   on a fake 16x16 world and the decode cells (decode_32k, long_500k) on
+   2x16x16, one `run_cell` each with ``device="cuda"`` in 8 spawned
+   processes, one line a cell (FLOPs, collective bytes, argument and temp
+   bytes a device, the card's allocated bytes before and after and its
+   peak, and each worker's peak over its first fake world and mesh); gate:
+   every cell ``ok`` and the card's allocated bytes unchanged; (b)
+   tinyllama-1.1b at phase 12 (a)'s 8 x 512 with its `Runtime()` on a fake
+   1x1 world: argument bytes exactly those of phase 12 (a)'s parameters,
+   optimizer state and batch, and FLOPs exactly the same counter's over the
+   real unsharded step on the card (zeros); the predicted peak (arguments +
+   temp) beside phase 12 (a)'s ``max_memory_allocated`` and the real
+   step's, and the forward + backward predicted under each remat beside
+   phase 12 (c)'s peaks, with their ratios.
+15. The four examples on the card, each's `main` as ``python -m
+   repro_torch.examples.<name>`` calls it (in process): quickstart,
+   spmv_pipeline, serve_decode and ``train_tinylm --steps 10`` (checkpoints
+   under ``build/tinylm-ckpt-<pid>``, removed at the end); each returns,
+   and their launches of `sell_spmv` and `coalesced_gather` join the
+   kernels line. What went through a kernel is held to its plain version
+   on the same inputs (tolerance TOL + TOL*|ref|): quickstart's SpMV
+   errors against dense below TOL and its gather exact, spmv_pipeline's
+   |A x|/|x| against the reference backend's power iteration,
+   serve_decode's paged attention against the ``index`` gather's;
+   train_tinylm's losses finite.
 
 Every served path (the serve runs of phases 3 and 5-11; phase 3's matvec;
-phase 11's first cuda-embedding run; phases 12 and 13's training) is
+phase 11's first cuda-embedding run; phases 12 and 13's training; phase
+14's dry-run, which launches nothing; phase 15's examples) is
 driven with the launch counts set to 0 just before it and read just after;
 the JSON line before the card line sums them per kernel (one entry
 per kernel; `sell_spmv`'s times are at the solver shape whose served solves
@@ -2352,6 +2379,12 @@ def train_full(device, smi):
     params = out["params"]
     n_params = sum(p.numel() for p in params.parameters())
     step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    opt = out["opt_state"]
+    held = list(params.parameters()) + list(opt.mu.parameters()) + \
+        list(opt.nu.parameters()) + [opt.step]
+    PHASE12["argument_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in held) + TRAIN_BATCH * TRAIN_SEQ * 4
+    del opt, held
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     PHASE12.update(losses=[h["loss"] for h in hist],
                    grad_norms=[h["grad_norm"] for h in hist],
@@ -2406,6 +2439,7 @@ def remat_modes(device, model, params, data_cfg):
                            torch.cuda.max_memory_allocated(device),
                            time.perf_counter() - t0)
             del grads
+    PHASE12["remat_peaks"] = {r: v[1] for r, v in seen.items()}
     base = seen["none"][0]
     for remat, (loss, peak, secs) in seen.items():
         print(f"(c) remat {remat}: loss {loss:.6f}, peak device memory "
@@ -2701,7 +2735,9 @@ def training_path(device, smi):
 
 
 # Phase 13: the sharded step on a 1x1 NCCL mesh against phase 12 (a)
-PHASE12 = {}  # phase 12 (a)'s losses, step ms and peak, filled there
+# phase 12 (a)'s losses, step ms, peak and the bytes of its parameters,
+# optimizer state and batch, and (c)'s peaks by remat, filled there
+PHASE12 = {}
 SHARD_STEPS = 10
 GRID_ARGV = ["--arch", TRAIN_ARCH, "--reduced", "--mesh", "2,2", "--device",
              "cpu", "--steps", "4"]
@@ -2833,6 +2869,304 @@ def sharded_training_path(device, smi):
     return launches
 
 
+# Phase 14: the dry-run on a fake world (nothing allocated on the card)
+DRYRUN_WORKERS = 8  # the host's cores; each cell is CPU-bound
+DRYRUN_POD_SHAPES = ("decode_32k", "long_500k")  # the 2x16x16 cells run
+DRYRUN_COST = {"train": 0, "prefill": 1, "decode": 2}  # longest first
+
+
+def _dryrun_cell(arch, shape, multi_pod):
+    """Phase 14 (a)'s worker: one cell of `launch.dryrun` on the card's
+    device (its JSON written under artifacts/dryrun_torch/), with the
+    card's allocated bytes before and after and its peak."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.launch import dryrun
+
+    torch.cuda.set_device(0)
+    if not _WORLD_PEAK:  # the process's first world and mesh, on their own
+        torch.cuda.reset_peak_memory_stats()
+        with dryrun.fake_world(256):
+            dryrun.mesh_of((16, 16), "cuda")
+        _WORLD_PEAK.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    res = dryrun.run_cell(get_arch(arch), SHAPES_BY_NAME[shape],
+                          multi_pod=multi_pod, device="cuda")
+    if torch.cuda.current_device() != 0:  # rank 0 of a fake world
+        raise AssertionError(f"the fake world set cuda:"
+                             f"{torch.cuda.current_device()}")
+    return (dataclasses.asdict(res), before, torch.cuda.memory_allocated(),
+            torch.cuda.max_memory_allocated(), _WORLD_PEAK[0])
+
+
+_WORLD_PEAK = []  # a worker's peak over its first fake world and mesh
+
+
+def _gb(n):
+    return f"{n / 1e9:.3f} GB"
+
+
+def dryrun_cells(smi):
+    """(a): every arch x applicable shape on 16x16 and the decode cells on
+    2x16x16, in `DRYRUN_WORKERS` spawned processes (each cell its own fake
+    world)."""
+    import concurrent.futures as futures
+    import multiprocessing
+
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME, applicable_shapes
+
+    cells = [(cfg.name, cell.name, multi) for multi in (False, True)
+             for cfg in ARCHS.values() for cell in applicable_shapes(cfg)
+             if not multi or cell.name in DRYRUN_POD_SHAPES]
+    order = sorted(cells, key=lambda c: (
+        c[2], DRYRUN_COST[SHAPES_BY_NAME[c[1]].kind]))
+    t0 = time.perf_counter()
+    with futures.ProcessPoolExecutor(
+            DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_dryrun_cell, *zip(*order)))
+    secs = time.perf_counter() - t0
+    rows, failed = [], []
+    for (arch, shape, multi), (res, before, after, peak, world) in zip(
+            order, results):
+        mem, cost, coll = res["memory"], res["cost"], res["collectives"]
+        print(f"[{'OK ' if res['ok'] else 'FAIL'}] {arch:28s} {shape:12s} "
+              f"{res['mesh']:8s} {res['seconds']:7.1f}s "
+              f"flops={cost.get('flops', 0):.3e} "
+              f"coll={coll.get('total_bytes', 0):.3e} "
+              f"args={_gb(mem.get('argument_size_in_bytes', 0))} "
+              f"temp={_gb(mem.get('temp_size_in_bytes', 0))} card "
+              f"{before} -> {after} B (peak {peak} B; the worker's first "
+              f"world and mesh {world} B) {res['error'] or ''}")
+        if not res["ok"] or after != before:
+            failed.append((arch, shape, res["mesh"]))
+        rows.append(res)
+    print(f"(a) {len(cells)} cells ({sum(not c[2] for c in cells)} on "
+          f"16x16, {sum(c[2] for c in cells)} on 2x16x16: "
+          f"{', '.join(DRYRUN_POD_SHAPES)}) in {secs:.1f} s on "
+          f"{DRYRUN_WORKERS} processes ({smi})")
+    if failed:
+        raise AssertionError(f"(a) dry-run cells failed or moved the card's "
+                             f"memory: {failed}")
+    return rows
+
+
+def _fake_counts(cfg, cell, rt, device, fn=None, shape=(1, 1)):
+    """`launch.dryrun`'s counts of `cell`'s step (or of ``fn(params,
+    batch)``, a part of the train step) on a fake world of `shape`, and
+    the counter."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+
+    with dryrun.fake_world(int(np.prod(shape))):
+        mesh = dryrun.mesh_of(shape, device)
+        fake = FakeTensorMode(allow_non_fake_inputs=False)
+        step, args = dryrun.step_inputs(cfg, cell, rt, mesh=mesh,
+                                        device=device, fake_mode=fake)
+        if fn is not None:
+            step, args = fn, (args[0], args[2])
+        counter = dryrun.StepCounter(fake)
+        return dryrun.count_step(step, args, counter), counter
+
+
+def dryrun_ground_truth(device, smi):
+    """(b): tinyllama-1.1b's train step at phase 12 (a)'s 8 x 512 on a fake
+    1x1 world against phase 12's real tensors and peaks, and its FLOPs
+    against the same counter over the real unsharded step on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Runtime, build_model, lm_loss, \
+        param_shapes
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = get_arch(TRAIN_ARCH)
+    n_params = sum(t.numel() for t in param_shapes(cfg).parameters())
+    cell = ShapeCell("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    res = dryrun.run_cell(cfg, cell, rt=Runtime(), save=False,
+                          device=device, mesh_shape=(1, 1))
+    if not res.ok:
+        raise AssertionError(f"(b) {res.error}")
+    fake_peak = torch.cuda.max_memory_allocated(device) - before
+    args = res.memory["argument_size_in_bytes"]
+    want = PHASE12["argument_bytes"]
+    print(f"(b) dry-run of {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} on a "
+          f"fake 1x1 world in {res.seconds} s (the card's peak over it "
+          f"{fake_peak} B): argument bytes {int(args)}, phase 12 (a)'s "
+          f"parameters, optimizer state and batch {want} (equal: "
+          f"{args == want})")
+    if args != want:
+        raise AssertionError(f"(b) argument bytes {args} against {want}")
+    step, real_args = dryrun.step_inputs(cfg, cell, Runtime(), device=device)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    real = dryrun.count_step(step, real_args, dryrun.StepCounter())
+    torch.cuda.synchronize(device)
+    real_peak = torch.cuda.max_memory_allocated(device) - base
+    del step, real_args
+    _fresh_caches()
+    print(f"(b) FLOPs: dry-run {res.cost['flops']:.6e}, the real unsharded "
+          f"step on the card under the same counter "
+          f"{real['cost']['flops']:.6e} (equal: "
+          f"{res.cost['flops'] == real['cost']['flops']}); 6 * N * tokens "
+          f"= {6 * n_params * TRAIN_BATCH * TRAIN_SEQ:.6e}")
+    if res.cost["flops"] != real["cost"]["flops"]:
+        raise AssertionError("(b) dry-run FLOPs differ from the real step's")
+    predicted = args + res.memory["temp_size_in_bytes"]
+    print(f"(b) predicted peak (arguments + temp) {int(predicted)} B; "
+          f"phase 12 (a)'s max_memory_allocated {PHASE12['peak']} B (ratio "
+          f"{predicted / PHASE12['peak']:.4f}); the real step above, from "
+          f"zeros: its counter's own peak {int(real['memory']['temp_size_in_bytes'] + args)} B, "
+          f"max_memory_allocated over it {real_peak + base} B (ratio "
+          f"{predicted / (real_peak + base):.4f}) ({smi})")
+    for shape in ((2, 2),):  # (ROADMAP C25: not 16x16, B = 8 < 16)
+        grid, counter = _fake_counts(cfg, cell, Runtime(), device,
+                                     shape=shape)
+        print(f"(b) what the grid moves, {TRAIN_ARCH} {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} on a fake {dryrun.mesh_name(shape)} world, per "
+              f"device: collectives {grid['collectives']}; FLOPs "
+              f"{grid['cost']['flops']:.4e}; argument bytes "
+              f"{int(grid['memory']['argument_size_in_bytes'])}, temp "
+              f"{int(grid['memory']['temp_size_in_bytes'])}; by site "
+              f"(kind, result shape, dtype: count, MB), largest first:")
+        sites = sorted(counter.collective_sites.items(),
+                       key=lambda kv: -kv[1][1])
+        for (kind, shapes, dtype), (count, total) in sites[:12]:
+            print(f"    {kind} {shapes} {dtype}: {count} x, "
+                  f"{total / 1e6:.3f} MB")
+    model = build_model(cfg)
+    for remat, measured in PHASE12["remat_peaks"].items():
+        rt = Runtime(remat=remat)
+
+        def fwd_bwd(params, batch):
+            return value_and_grad(lambda p: lm_loss(model, p, batch, rt),
+                                  params)
+
+        fb, _ = _fake_counts(cfg, cell, rt, device, fwd_bwd)
+        pred = fb["memory"]["argument_size_in_bytes"] + \
+            fb["memory"]["temp_size_in_bytes"]
+        print(f"(b) remat {remat}: forward + backward predicted peak "
+              f"{int(pred)} B, phase 12 (c)'s max_memory_allocated "
+              f"{measured} B (ratio {pred / measured:.4f}); FLOPs "
+              f"{fb['cost']['flops']:.4e}")
+
+
+def dryrun_path(device, smi):
+    """Phase 14: (a) the dry-run's cells on a fake world, (b) its counts
+    against phase 12's real tensors, peaks and FLOPs. Driven with the
+    launch counts set to 0: returns them (a dry-run launches nothing)."""
+    import torch
+
+    _phase(f"14. the dry-run: every arch x shape on a fake 16x16 world, the "
+           f"decode cells on 2x16x16, and tinyllama against phase 12 "
+           f"({smi})")
+    print(f"torch {torch.__version__}")
+    _fresh_caches()
+    _reset_launches()
+    dryrun_cells(smi)
+    dryrun_ground_truth(device, smi)
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the dry-run launched {launches}")
+    return launches
+
+
+# Phase 15: the four examples on the card
+EXAMPLES = (("quickstart", []), ("spmv_pipeline", []),
+            ("serve_decode", []),
+            ("train_tinylm", ["--steps", "10"]))
+
+
+def examples_path(device, smi):
+    """Phase 15: each example's `main` as ``python -m
+    repro_torch.examples.<name>`` calls it (in process, so that the
+    launches count), with the launch counts set to 0 before and read after
+    each; then what each computed through a kernel held to its plain
+    version on the same inputs (`_check_example`)."""
+    import importlib
+    import shutil
+
+    _phase(f"15. the examples on the card ({smi})")
+    ckpt = ROOT / "build" / f"tinylm-ckpt-{os.getpid()}"
+    launches = {}
+    try:
+        for name, argv in EXAMPLES:
+            if name == "train_tinylm":
+                argv = argv + ["--ckpt-dir", str(ckpt)]
+            module = importlib.import_module(f"repro_torch.examples.{name}")
+            _fresh_caches()
+            _reset_launches()
+            t0 = time.perf_counter()
+            out = module.main(argv)
+            counts = _read_launches()
+            print(f"python -m repro_torch.examples.{name} {' '.join(argv)}"
+                  f": returned in {time.perf_counter() - t0:.1f} s, "
+                  f"launches {counts}", flush=True)
+            _add(launches, counts)
+            _check_example(name, module, out, device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if launches["sell_spmv"] < 1 or launches["coalesced_gather"] < 1:
+        raise AssertionError(f"the examples launched {launches}")
+    return launches
+
+
+def _check_example(name, module, out, device):
+    """Phase 15's check of one example's results (no launch counted: the
+    plain versions launch no kernel). quickstart: both SpMV errors against
+    dense below TOL, the gather exact; spmv_pipeline: each matrix's
+    |A x|/|x| against the same power iteration on the reference backend;
+    serve_decode: the paged attention against the same query and cache
+    through the ``index`` gather; train_tinylm: finite losses."""
+    import torch
+
+    from repro_torch.core.engine import get_engine
+    from repro_torch.models.paged_kv import paged_attention
+
+    if name == "quickstart":
+        if not (out["kernel_err"] < TOL and out["coalesced_err"] < TOL
+                and out["gather_exact"]):
+            raise AssertionError(f"quickstart on the card: {out}")
+        print(f"  quickstart: sell_spmv max err vs dense "
+              f"{out['kernel_err']:.3e}, the coalesced path "
+              f"{out['coalesced_err']:.3e} (< {TOL}); the gather exact")
+    elif name == "spmv_pipeline":
+        for matrix, r in out.items():
+            ref = module.power_iteration(
+                get_engine(r["sell"], block_rows=8, backend="reference",
+                           device=device), n_iters=10)
+            err = _max_err(torch.tensor(r["lam"]), torch.tensor(ref), TOL)
+            print(f"  spmv_pipeline {matrix}: |A x|/|x| {r['lam']!r} "
+                  f"against the reference backend's {ref!r}: abs err "
+                  f"{err:.3e} (tolerance {TOL} + {TOL}*|ref|)")
+    elif name == "serve_decode":
+        ref = paged_attention(out["q"], out["cache"],
+                              n_heads=out["n_heads"], backend="index")
+        if not bool(torch.isfinite(out["out"]).all()):
+            raise AssertionError("serve_decode's paged attention is not "
+                                 "finite")
+        err = _max_err(out["out"], ref, TOL)
+        print(f"  serve_decode: paged attention {tuple(out['out'].shape)} "
+              f"against the index gather's max abs err {err:.3e} "
+              f"(tolerance {TOL} + {TOL}*|ref|)")
+    elif name == "train_tinylm":
+        losses = [h["loss"] for h in out["history"]]
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"train_tinylm's losses {losses}")
+        print(f"  train_tinylm: {len(losses)} logged losses, all finite, "
+              f"final {out['final_loss']!r}")
+
+
 def main():
     import torch
 
@@ -2885,6 +3219,9 @@ def main():
         12, training_path, device, smi)
     served["13 train on a process mesh (no kernel on this path)"] = timed(
         13, sharded_training_path, device, smi)
+    served["14 the dry-run (no kernel on this path)"] = timed(
+        14, dryrun_path, device, smi)
+    served["15 the examples"] = timed(15, examples_path, device, smi)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")

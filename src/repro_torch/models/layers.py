@@ -21,8 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.indirect_stream import coalesced_gather
 from repro_torch.sharding.dtensor import einsum as sharded_einsum
-from repro_torch.sharding.dtensor import is_dtensor, keep_only, \
-    vocab_lookup
+from repro_torch.sharding.dtensor import fit_merged, fit_split, \
+    is_dtensor, keep_only, shards_inner_dims, vocab_lookup
 
 # A tensor drawn at once holds at most this many elements; larger ones (the
 # stacked experts of a full-width MoE layer) are drawn slice by slice along
@@ -39,9 +39,29 @@ def _promoted(*ts):
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with mixed dtypes promoted first."""
+    """``a @ b`` with mixed dtypes promoted first. On a DTensor whose rows
+    are sharded past their leading dim (a cache sharded on its sequence),
+    which ``@`` would flatten into one and torch 2.11 refuses, it is the
+    shard-by-shard `sharding.dtensor.einsum`."""
     a, b = _promoted(a, b)
+    if is_dtensor(a) and shards_inner_dims(a):
+        return sharded_einsum("...k,kn->...n", a, b)
     return a @ b
+
+
+def split_heads(t: torch.Tensor, n_heads: int, *head_shape) -> torch.Tensor:
+    """(..., n_heads * prod(head_shape)) -> (..., n_heads, *head_shape). On
+    a DTensor the last dim is first fitted for the split
+    (`sharding.dtensor.fit_split`)."""
+    return fit_split(t, -1, n_heads).reshape(*t.shape[:-1], n_heads,
+                                             *head_shape)
+
+
+def _merge_heads(out: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), its gradient fitted for the split
+    back into `n_heads` heads (`sharding.dtensor.fit_merged`)."""
+    B, S = out.shape[:2]
+    return fit_merged(out.reshape(B, S, -1), -1, n_heads)
 
 
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -221,7 +241,7 @@ def _sdpa(
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     group = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, group, hd)
+    qg = fit_split(q, 2, Hkv).reshape(B, Sq, Hkv, group, hd)
     # on a process mesh: batch and kv heads only stay sharded, so the
     # result merges (heads, head_dim) with the heads leading
     qg, k, v = (keep_only(t, (0, 2)) for t in (qg, k, v))
@@ -289,21 +309,21 @@ def attention_apply(
     q = mm(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, Sq, n_heads, head_dim)
+    q = split_heads(q, n_heads, head_dim)
     if use_rope:
         q = apply_rope(q, positions.expand(B, Sq), rope_theta)
 
     if kv_override is not None:
         k, v = kv_override
         out = _sdpa(q, k, v, mask)
-        return mm(out.reshape(B, Sq, -1), p["wo"]), None
+        return mm(_merge_heads(out, n_heads), p["wo"]), None
 
     k = mm(x, p["wk"])
     v = mm(x, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, Sq, n_kv_heads, head_dim)
-    v = v.reshape(B, Sq, n_kv_heads, head_dim)
+    k = split_heads(k, n_kv_heads, head_dim)
+    v = split_heads(v, n_kv_heads, head_dim)
     if use_rope:
         k = apply_rope(k, positions.expand(B, Sq), rope_theta)
 
@@ -311,14 +331,14 @@ def attention_apply(
         if mask is None:
             mask = causal_mask(Sq, Sq, device=x.device)
         out = _sdpa(q, k, v, mask)
-        return mm(out.reshape(B, Sq, -1), p["wo"]), (k, v)
+        return mm(_merge_heads(out, n_heads), p["wo"]), (k, v)
 
     ck, cv = kv_cache
     _write_cache(ck, k, cache_index)
     _write_cache(cv, v, cache_index)
     dec_mask = _decode_mask(cache_index, Sq, ck.shape[1], x.device)
     out = _sdpa(q, ck, cv, dec_mask)
-    return mm(out.reshape(B, Sq, -1), p["wo"]), (ck, cv)
+    return mm(_merge_heads(out, n_heads), p["wo"]), (ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +381,7 @@ def mla_apply(
     (kv_lora_rank) + shared rope key, written in place."""
     B, Sq, D = x.shape
     dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
-    q = mm(x, p["wq"]).reshape(B, Sq, n_heads, dn + dr)
+    q = split_heads(mm(x, p["wq"]), n_heads, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     pos = positions.expand(B, Sq)
     q_rope = apply_rope(q_rope, pos, rope_theta)
@@ -385,13 +405,13 @@ def mla_apply(
             mask = causal_mask(Sq, sk, device=x.device)
         new_cache = (c_kv, k_rope)
 
-    k_nope = mm(c_all, p["w_uk"]).reshape(B, sk, n_heads, dn)
-    v = mm(c_all, p["w_uv"]).reshape(B, sk, n_heads, dv)
+    k_nope = split_heads(mm(c_all, p["w_uk"]), n_heads, dn)
+    v = split_heads(mm(c_all, p["w_uv"]), n_heads, dv)
     k_rope_b = r_all[:, :, None, :].expand(B, sk, n_heads, dr)
     k = torch.cat(_promoted(k_nope, k_rope_b), dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = _sdpa(q_full, k, v, mask)
-    return mm(out.reshape(B, Sq, -1), p["wo"]), new_cache
+    return mm(_merge_heads(out, n_heads), p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gather_engine import get_gather_engine
-from repro_torch.sharding.dtensor import replicated
+from repro_torch.sharding.dtensor import fit_merged, fit_split, \
+    replicated
 
 from .layers import _dense_init, einsum, ffn_apply, init_ffn, mm
 
@@ -83,7 +84,10 @@ def _build_buf_local(xf, w, idx, *, E, k, C):
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], token_of[order], w_flat[order]
 
-    counts = torch.bincount(se, minlength=E)  # tokens per expert
+    # tokens per expert: `repro`'s ``bincount(length=E)``, its shape fixed
+    # (torch's bincount sizes its result by the data)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts  # first rank of each expert
     pos = torch.arange(T * k, device=dev) - starts[se]  # slot within expert
     in_cap = pos < C
@@ -153,7 +157,7 @@ def moe_apply(
     B, S, D = x.shape
     E, k = moe.n_experts, moe.top_k
     T = B * S
-    xf = x.reshape(T, D)
+    xf = fit_merged(x.reshape(T, D), 0, B)
     probs, w, idx = _route(p, xf, k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
 
@@ -189,7 +193,7 @@ def moe_apply(
     frac_tokens = counts.to(torch.float32) / (T * k)
     frac_probs = probs.mean(0)
     aux = E * torch.sum(frac_tokens * frac_probs)
-    return y.reshape(B, S, D), aux
+    return fit_split(y, 0, B).reshape(B, S, D), aux
 
 
 def dispatch_report(

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dense_init, _normal, einsum, init_rmsnorm, mm, \
-    rmsnorm_apply
+    rmsnorm_apply, split_heads
 
 
 def init_mamba2(generator, d_model: int, ssm, dtype, *, device=None) -> dict:
@@ -151,7 +151,7 @@ def mamba2_apply(
                                       conv_state)
     xr, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
 
-    xh = xr.reshape(Bsz, S, H, P)
+    xh = split_heads(xr, H, P)
     dtf = torch.logaddexp(dt.to(f32) + p["dt_bias"],
                           torch.zeros((), dtype=f32, device=x.device))
     a = -torch.exp(p["a_log"])  # (H,)

@@ -804,7 +804,6 @@ class Whisper(_Family):
                    cache_index, x):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
-        B, Se = x.shape[0], enc_out.shape[1]
         h = L.layernorm_apply(lp["self_norm"], x, cfg.norm_eps)
         out, nkv = L.attention_apply(
             lp["self_attn"], h, n_heads=cfg.n_heads,
@@ -814,10 +813,10 @@ class Whisper(_Family):
         x = x + out
         h = L.layernorm_apply(lp["cross_norm"], x, cfg.norm_eps)
         ca = lp["cross_attn"]
-        k = (L.mm(enc_out, ca["wk"]) + ca["bk"]).reshape(
-            B, Se, cfg.n_kv_heads, hd)
-        v = (L.mm(enc_out, ca["wv"]) + ca["bv"]).reshape(
-            B, Se, cfg.n_kv_heads, hd)
+        k = L.split_heads(L.mm(enc_out, ca["wk"]) + ca["bk"],
+                          cfg.n_kv_heads, hd)
+        v = L.split_heads(L.mm(enc_out, ca["wv"]) + ca["bv"],
+                          cfg.n_kv_heads, hd)
         out, _ = L.attention_apply(
             ca, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=hd, positions=positions, use_rope=False,
@@ -942,12 +941,11 @@ class VLM(_Family):
 
     def _img_kv(self, lp, img_embeds):
         cfg = self.cfg
-        B, Si, D = img_embeds.shape
         hd = cfg.resolved_head_dim
-        k = L.mm(img_embeds, lp["xattn"]["wk"]).reshape(B, Si,
-                                                        cfg.n_kv_heads, hd)
-        v = L.mm(img_embeds, lp["xattn"]["wv"]).reshape(B, Si,
-                                                        cfg.n_kv_heads, hd)
+        k = L.split_heads(L.mm(img_embeds, lp["xattn"]["wk"]),
+                          cfg.n_kv_heads, hd)
+        v = L.split_heads(L.mm(img_embeds, lp["xattn"]["wv"]),
+                          cfg.n_kv_heads, hd)
         return k, v
 
     def _run(self, x, positions, img_embeds, rt, cache=None,

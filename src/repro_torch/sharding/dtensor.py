@@ -22,10 +22,15 @@ port's counterpart of `jax.device_put` onto ``NamedSharding``s.
     shard on the letters the output keeps.
   * `replicated(fn, *args)`: ``fn`` on the replicated local values of
     DTensor arguments, its results replicated DTensors (the MoE dispatch).
+  * `batch_local(fn, *args, batched)`: ``fn`` on this rank's rows of the
+    batch, its results sharded as the batch (the sLSTM recurrence).
   * `register_rules()`: the sharding rules the model stack needs that
     DTensor lacks (``log_sigmoid_backward``, ``flip``).
   * `keep_only(t, dims)`: only `dims` left sharded, before a reshape that
     merges a sharded dim into the one before it.
+  * `fit_split(t, dim, parts)`: `dim` left sharded only where its shards
+    hold whole parts, before a reshape that splits it (into heads);
+    `fit_merged` the same for the gradient of a merge.
   * `replication(tree)`: a context in which plain tensors (positions,
     masks, the learning rate) meet DTensors as replicated values, when
     `tree` holds DTensors.
@@ -99,6 +104,22 @@ def local_chunk(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     return t
 
 
+def local_shape(shape, mesh, placements) -> tuple:
+    """The shape of this rank's shard of a tensor of `shape` under
+    `placements`: `local_chunk`'s, reckoned without a tensor (each
+    ``Shard`` mesh dim splits its dim in chunks of ``ceil(n / k)``, as
+    ``torch.chunk`` does)."""
+    from torch.distributed.tensor import Shard
+
+    out = list(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n, k = out[pl.dim], mesh.size(i)
+            chunk = -(-n // k)
+            out[pl.dim] = max(0, min(chunk, n - chunk * mesh.get_local_rank(i)))
+    return tuple(out)
+
+
 def mesh_device(mesh) -> torch.device:
     """This rank's device on a process mesh: the card it set as current
     (`launch.mesh.make_process_mesh` does), or the CPU of a CPU mesh."""
@@ -128,10 +149,8 @@ def empty(t: torch.Tensor, sharding: Sharding, device=None):
     `t` may lie on ``meta``."""
     register_rules()
     mesh, placements = sharding.mesh, sharding.placements
-    shape = local_chunk(torch.empty(t.shape, device="meta"), mesh,
-                        placements).shape
-    local = torch.empty(shape, dtype=t.dtype,
-                        device=device or mesh_device(mesh))
+    local = torch.empty(local_shape(t.shape, mesh, placements),
+                        dtype=t.dtype, device=device or mesh_device(mesh))
     return wrap(local, mesh, placements, shape=t.shape)
 
 
@@ -233,6 +252,67 @@ def keep_only(t: torch.Tensor, dims) -> torch.Tensor:
     return _GradOnPlacements.apply(redistribute(
         t, [p if isinstance(p, Shard) and p.dim in dims else Replicate()
             for p in t.placements]))
+
+
+def shards_inner_dims(t) -> bool:
+    """Whether the DTensor `t` is split on a dim other than its first and
+    its last (one that a matmul's flatten would merge into the dim before
+    it) over a mesh dim of more than one rank."""
+    from torch.distributed.tensor import Shard
+
+    return any(isinstance(p, Shard) and 0 < p.dim % t.ndim < t.ndim - 1
+               and t.device_mesh.size(i) > 1
+               for i, p in enumerate(t.placements))
+
+
+def fit_split(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """A DTensor about to have its dim `dim` split into (`parts`, ...):
+    the mesh dims sharding it are kept, major first, while their shards
+    hold whole parts, and the rest replicated first (4 kv heads on a model
+    axis of 16; tokens sharded over data and model, split back into a batch
+    of 32), its gradient coming back sharded as before. DTensor refuses (or
+    on some versions miscounts) a view that would leave a shard holding
+    part of a head or of a sequence. A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    fitted = _fitted(t, dim, parts)
+    return t if fitted is t else _GradOnPlacements.apply(fitted)
+
+
+def _fitted(t, dim: int, parts: int):
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= t.ndim
+    want, n = list(t.placements), 1
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= t.device_mesh.size(i)
+            if parts % n:
+                want[i] = Replicate()
+    return t if want == list(t.placements) else redistribute(t, want)
+
+
+class _GradFitted(torch.autograd.Function):
+    """The identity forward; backward, the gradient fitted (`fit_split`)
+    for the split that undoes the forward's merge."""
+
+    @staticmethod
+    def forward(ctx, x, dim, parts):
+        ctx.dim, ctx.parts = dim, parts
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad):
+            grad = _fitted(grad, ctx.dim, ctx.parts)
+        return grad, None, None
+
+
+def fit_merged(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """A DTensor whose dim `dim` was just merged from (`parts`, ...): its
+    gradient is fitted as `fit_split` fits a tensor before the backward
+    pass splits it back. A plain tensor as it is."""
+    return _GradFitted.apply(t, dim, parts) if is_dtensor(t) else t
 
 
 def replicate(t: torch.Tensor) -> torch.Tensor:
@@ -345,6 +425,44 @@ def replicated(fn: Callable, *args):
         else back(out)
 
 
+def batch_local(fn: Callable, *args, batched):
+    """``fn(*args)`` for a region independent across the batch: the
+    arguments at the positions `batched` hold the batch on dim 0, the others
+    are shared (weights). On DTensors it runs on this rank's rows: each
+    batched argument laid out as the first batched DTensor holds its batch
+    (the mesh dims sharding its dim 0 kept, every other dim replicated), the
+    shared ones replicated, and each tensor `fn` returns (the batch on dim
+    0) comes back a DTensor laid out so: one region instead of a DTensor op
+    each (the sLSTM's step-by-step recurrence). Differentiable; a shared
+    argument's gradient is a partial sum over the batch's mesh dims.
+    Without batched DTensors it is ``fn(*args)``."""
+    ref = next((args[i] for i in batched if is_dtensor(args[i])), None)
+    if ref is None:
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ref.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ref.placements]
+    partial = [Partial() if isinstance(p, Shard) else p for p in rows]
+    local = []
+    for i, a in enumerate(args):
+        if i in batched:
+            local.append(_local(redistribute(a, rows), rows)
+                         if is_dtensor(a) else local_chunk(a, mesh, rows))
+        else:
+            local.append(_local(replicate(a), partial) if is_dtensor(a)
+                         else a)
+    out = fn(*local)
+
+    def back(t):
+        return wrap(t.contiguous(), mesh, rows,
+                    shape=(ref.shape[0],) + tuple(t.shape[1:]))
+
+    return tuple(back(t) for t in out) if isinstance(out, tuple) \
+        else back(out)
+
+
 def _dense(t: torch.Tensor) -> bool:
     """Whether `t`'s elements fill its memory once each (a permutation of a
     contiguous layout; size-1 dims take any stride)."""
@@ -408,8 +526,10 @@ def einsum(eq: str, *ops):
     is not the leading one of the group (the attention scores' batch and
     head dims). Here each mesh dim keeps the sharding of one letter that
     the output keeps (a batch letter like the attention's heads, or an
-    operand's own free letter like the vocab of the logits): every operand
-    holding that letter is redistributed to be sharded on it, every other
+    operand's own free letter like the vocab of the logits; a letter may
+    keep several mesh dims, as the batch keeps ('pod', 'data')): every
+    operand holding that letter is redistributed to be sharded on it, every
+    other
     operand to ``Replicate()`` on that mesh dim, and a mesh dim sharding
     only contracted letters is replicated. Each rank then contracts its
     local shards with ``torch.einsum`` and the result is sharded on the
@@ -433,7 +553,13 @@ def einsum(eq: str, *ops):
             pl = op.placements[i]
             if isinstance(pl, Shard):
                 c = term[pl.dim]
-                if c in out and len(sizes[c]) == 1 and c not in keep:
+                # a letter may stay sharded over several mesh dims (the
+                # batch over ('pod', 'data')) where an operand holds it so
+                if c in out and len(sizes[c]) == 1 and (
+                        c not in keep or all(
+                            isinstance(op.placements[j], Shard)
+                            and term[op.placements[j].dim] == c
+                            for j, k in enumerate(keep) if k == c)):
                     letter = c
                     break
         keep.append(letter)
@@ -450,8 +576,11 @@ def einsum(eq: str, *ops):
     res = torch.einsum(",".join(terms) + "->" + out, *locals_)
     placements = [Shard(out.index(c)) if c is not None else Replicate()
                   for c in keep]
-    if all(c is None or max(sizes[c]) % mesh.size(i) == 0
-           for i, c in enumerate(keep)):
+    ways = {}
+    for i, c in enumerate(keep):
+        if c is not None:
+            ways[c] = ways.get(c, 1) * mesh.size(i)
+    if all(max(sizes[c]) % n == 0 for c, n in ways.items()):
         # even shards: the global shape and strides follow from the local
         # result, whose layout stays as torch.einsum made it
         return wrap(res, mesh, placements)

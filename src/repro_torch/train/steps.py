@@ -2,6 +2,7 @@
 prefill pass and one decode step over a `models.Model`."""
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -9,8 +10,23 @@ import torch
 from repro_torch.models import Model, lm_loss
 from repro_torch.models.transformer import Runtime
 from repro_torch.optim.optimizer import OptConfig, OptState, adamw_update
+from repro_torch.sharding.dtensor import holds_dtensors, replication
 
 from .loop import value_and_grad
+
+
+@contextlib.contextmanager
+def _serving(params):
+    """``torch.inference_mode`` on one device. On DTensor parameters (a
+    process mesh) ``torch.no_grad``, DTensor refusing in-place ops (the
+    cache writes) under inference mode, and plain tensors meet DTensors as
+    replicated values."""
+    if not holds_dtensors(params):
+        with torch.inference_mode():
+            yield
+        return
+    with torch.no_grad(), replication(params):
+        yield
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, rt: Runtime):
@@ -34,10 +50,10 @@ def make_prefill_step(model: Model, rt: Runtime):
     """(params, batch) -> last-position logits (the inference prefill
     pass)."""
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch, rt)
-        return logits[:, -1]
+        with _serving(params):
+            logits, _ = model.forward(params, batch, rt)
+            return logits[:, -1]
 
     return prefill_step
 
@@ -46,8 +62,8 @@ def make_serve_step(model: Model, rt: Runtime):
     """(params, tokens, cache) -> (logits, cache): one decode step with a
     KV/state cache of the cell's seq_len."""
 
-    @torch.inference_mode()
     def serve_step(params, tokens, cache):
-        return model.decode_step(params, tokens, cache, rt)
+        with _serving(params):
+            return model.decode_step(params, tokens, cache, rt)
 
     return serve_step
