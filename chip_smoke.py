@@ -210,8 +210,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    optimizer state and batch, and FLOPs exactly the same counter's over the
    real unsharded step on the card (zeros); the predicted peak (arguments +
    temp) beside phase 12 (a)'s ``max_memory_allocated`` and the real
-   step's, and the forward + backward predicted under each remat beside
-   phase 12 (c)'s peaks, with their ratios.
+   step's, the forward + backward predicted under each remat beside
+   phase 12 (c)'s peaks, with their ratios, and what the same step moves
+   on a fake 16x16 world (a batch of 8 replicated over a data axis of 16),
+   by collective site.
 15. The four examples on the card, each's `main` as ``python -m
    repro_torch.examples.<name>`` calls it (in process): quickstart,
    spmv_pipeline, serve_decode and ``train_tinylm --steps 10`` (checkpoints
@@ -223,10 +225,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    |A x|/|x| against the reference backend's power iteration,
    serve_decode's paged attention against the ``index`` gather's;
    train_tinylm's losses finite.
+16. The hill-climb (`repro_torch.tools.hillclimb`; nothing allocated, no
+   kernel launched): its 18 runs (phases 1-3 of its table: data-local MoE
+   dispatch, ZeRO-1, remat, capacity, sequence-sharded attention, the EP
+   constraint, FSDP, 2-D experts) at full size on the fake 16x16 world, in
+   phase 14's worker processes (submitted when phase 14's cells are done,
+   so they run beside phase 14 (b) and phase 15), each run's `show` line
+   against phase 14's baseline of its cell; gate: every run ``ok``, the
+   card's allocated bytes unchanged, no launch in its worker, and each run
+   with a layout lever on
+   (``seq_shard_attention``, ``moe_ep_constraint``) counting other
+   temporaries or collective bytes than the same run without it, where the
+   table (or phase 14's baseline) holds that run.
 
 Every served path (the serve runs of phases 3 and 5-11; phase 3's matvec;
 phase 11's first cuda-embedding run; phases 12 and 13's training; phase
-14's dry-run, which launches nothing; phase 15's examples) is
+14's dry-run and phase 16's hill-climb, which launch nothing; phase 15's
+examples) is
 driven with the launch counts set to 0 just before it and read just after;
 the JSON line before the card line sums them per kernel (one entry
 per kernel; `sell_spmv`'s times are at the solver shape whose served solves
@@ -2881,9 +2896,43 @@ def _dryrun_cell(arch, shape, multi_pod):
     card's allocated bytes before and after and its peak."""
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.launch import dryrun
+
+    return _card_bytes(dryrun.run_cell, get_arch(arch),
+                       SHAPES_BY_NAME[shape], multi_pod=multi_pod,
+                       device="cuda")
+
+
+_WORLD_PEAK = []  # a worker's peak over its first fake world and mesh
+
+
+def _gb(n):
+    return f"{n / 1e9:.3f} GB"
+
+
+_POOL = []  # phases 14 and 16's worker processes, shut down by `main`
+
+
+def _dryrun_pool():
+    """`DRYRUN_WORKERS` spawned processes, started once for phases 14 and
+    16."""
+    import concurrent.futures as futures
+    import multiprocessing
+
+    if not _POOL:
+        _POOL.append(futures.ProcessPoolExecutor(
+            DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")))
+    return _POOL[0]
+
+
+def _card_bytes(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a worker, with the card's allocated bytes before
+    and after it and its peak over it, and the worker's peak over its
+    first fake world and mesh; raises if it launched a kernel (the
+    worker's own counts, set to 0 just before and read just after)."""
     import torch
 
-    from repro_torch.configs import SHAPES_BY_NAME, get_arch
     from repro_torch.launch import dryrun
 
     torch.cuda.set_device(0)
@@ -2894,29 +2943,22 @@ def _dryrun_cell(arch, shape, multi_pod):
         _WORLD_PEAK.append(torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    res = dryrun.run_cell(get_arch(arch), SHAPES_BY_NAME[shape],
-                          multi_pod=multi_pod, device="cuda")
+    _reset_launches()
+    res = fn(*args, **kwargs)
+    launches = _read_launches()
     if torch.cuda.current_device() != 0:  # rank 0 of a fake world
         raise AssertionError(f"the fake world set cuda:"
                              f"{torch.cuda.current_device()}")
+    if any(launches.values()):
+        raise AssertionError(f"{fn.__name__} launched {launches}")
     return (dataclasses.asdict(res), before, torch.cuda.memory_allocated(),
             torch.cuda.max_memory_allocated(), _WORLD_PEAK[0])
-
-
-_WORLD_PEAK = []  # a worker's peak over its first fake world and mesh
-
-
-def _gb(n):
-    return f"{n / 1e9:.3f} GB"
 
 
 def dryrun_cells(smi):
     """(a): every arch x applicable shape on 16x16 and the decode cells on
     2x16x16, in `DRYRUN_WORKERS` spawned processes (each cell its own fake
     world)."""
-    import concurrent.futures as futures
-    import multiprocessing
-
     from repro_torch.configs import ARCHS, SHAPES_BY_NAME, applicable_shapes
 
     cells = [(cfg.name, cell.name, multi) for multi in (False, True)
@@ -2925,10 +2967,7 @@ def dryrun_cells(smi):
     order = sorted(cells, key=lambda c: (
         c[2], DRYRUN_COST[SHAPES_BY_NAME[c[1]].kind]))
     t0 = time.perf_counter()
-    with futures.ProcessPoolExecutor(
-            DRYRUN_WORKERS,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        results = list(pool.map(_dryrun_cell, *zip(*order)))
+    results = list(_dryrun_pool().map(_dryrun_cell, *zip(*order)))
     secs = time.perf_counter() - t0
     rows, failed = [], []
     for (arch, shape, multi), (res, before, after, peak, world) in zip(
@@ -3029,7 +3068,7 @@ def dryrun_ground_truth(device, smi):
           f"zeros: its counter's own peak {int(real['memory']['temp_size_in_bytes'] + args)} B, "
           f"max_memory_allocated over it {real_peak + base} B (ratio "
           f"{predicted / (real_peak + base):.4f}) ({smi})")
-    for shape in ((2, 2),):  # (ROADMAP C25: not 16x16, B = 8 < 16)
+    for shape in ((16, 16),):  # B = 8 < 16: the batch replicated
         grid, counter = _fake_counts(cfg, cell, Runtime(), device,
                                      shape=shape)
         print(f"(b) what the grid moves, {TRAIN_ARCH} {TRAIN_BATCH} x "
@@ -3074,10 +3113,130 @@ def dryrun_path(device, smi):
     _fresh_caches()
     _reset_launches()
     dryrun_cells(smi)
+    start_hillclimb()  # phase 16's runs, in the workers from here on
     dryrun_ground_truth(device, smi)
     launches = _read_launches()
     if any(launches.values()):
         raise AssertionError(f"the dry-run launched {launches}")
+    return launches
+
+
+# Phase 16: the hill-climb on the fake 16x16 world
+HILLCLIMB_PHASES = (1, 2, 3)
+LEVERS = ("seq_shard_attention", "moe_ep_constraint")
+HILLCLIMB_COST = {"llama4-maverick-400b-a17b": 0, "deepseek-v2-lite-16b": 1,
+                  "smollm-360m": 2}  # longest first
+
+
+def _hillclimb_run(phase, index):
+    """Phase 16's worker: one run of the hill-climb's table on the card's
+    device (its JSON written under artifacts/dryrun_torch/ by its tag)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.tools import hillclimb
+
+    return _card_bytes(hillclimb.run, *hillclimb.PHASES[phase][index],
+                       device="cuda")
+
+
+def _lever_twin(run, runs):
+    """The run of `runs` (or phase 14's baseline of the cell, tag
+    ``baseline``) that is `run` with its layout levers off, or None."""
+    arch, shape, _, rtkw, flags = run
+    off = {k: v for k, v in rtkw.items() if k not in LEVERS}
+    for other in runs:
+        if other[:2] == (arch, shape) and other[3] == off and \
+                other[4] == flags:
+            return other[2]
+    if off == {"remat": "dots"} and not flags:  # `default_runtime`'s
+        return "baseline"
+    return None
+
+
+def _lever_counts(res):
+    return (res["memory"].get("temp_size_in_bytes"),
+            {k: v for k, v in res["collectives"].items() if k != "op_count"})
+
+
+_HILLCLIMB = {}  # phase 16's runs: (phase, index) -> future; the start
+
+
+def start_hillclimb():
+    """Submit phase 16's runs to phase 14's worker processes, longest
+    first, as soon as phase 14's cells have written the baselines: they
+    run while the main process does phase 14 (b) and phase 15."""
+    from repro_torch.tools import hillclimb
+
+    pool = _dryrun_pool()
+    runs = [(ph, i) for ph in HILLCLIMB_PHASES
+            for i in range(len(hillclimb.PHASES[ph]))]
+    _HILLCLIMB["start"] = time.perf_counter()
+    for ph, i in sorted(runs, key=lambda r: HILLCLIMB_COST.get(
+            hillclimb.PHASES[r[0]][r[1]][0], 3)):
+        _HILLCLIMB[ph, i] = pool.submit(_hillclimb_run, ph, i)
+
+
+def hillclimb_path(device, smi):
+    """Phase 16: the hill-climb's runs of `HILLCLIMB_PHASES` in phase 14's
+    worker processes (submitted by `start_hillclimb`), each `show` line
+    against phase 14's baseline; every run ``ok`` with the card's memory
+    unchanged and no launch in its worker, and each lever's counts unlike
+    those of the same run without it. Returns the main process's launch
+    counts over the phase (set to 0 just before, read just after: the
+    hill-climb runs in the workers and launches nothing)."""
+    from repro_torch.launch.dryrun import CellResult
+    from repro_torch.tools import hillclimb
+
+    _phase(f"16. the hill-climb: phases {HILLCLIMB_PHASES} of "
+           f"`repro_torch.tools.hillclimb` on the fake 16x16 world ({smi})")
+    _fresh_caches()
+    _reset_launches()
+    if "start" not in _HILLCLIMB:
+        start_hillclimb()
+    runs = [(ph, i) for ph in HILLCLIMB_PHASES
+            for i in range(len(hillclimb.PHASES[ph]))]
+    results = {r: _HILLCLIMB[r].result() for r in runs}
+    secs = time.perf_counter() - _HILLCLIMB["start"]
+    table = [hillclimb.PHASES[ph][i] for ph, i in runs]
+    by_tag, failed = {}, []
+    for (ph, i), run in zip(runs, table):
+        res, before, after, peak, world = results[ph, i]
+        arch, shape, tag = run[:3]
+        print(f"{arch} {shape} -> {tag} (phase {ph}; card {before} -> "
+              f"{after} B, peak {peak} B)")
+        base = hillclimb._baseline(arch, shape)
+        hillclimb.show(CellResult(**res), base, colls=True)
+        by_tag[arch, tag] = res
+        if base is not None:
+            by_tag.setdefault((arch, "baseline"), base)
+        if not res["ok"] or after != before:
+            failed.append((arch, tag))
+    if failed:
+        raise AssertionError(f"hill-climb runs failed or moved the card's "
+                             f"memory: {failed}")
+    same, untwinned = [], []
+    for run in table:
+        if not any(run[3].get(k) for k in LEVERS):
+            continue
+        twin = _lever_twin(run, table)
+        if twin is None or (run[0], twin) not in by_tag:
+            untwinned.append((run[0], run[2]))
+            continue
+        got, off = (_lever_counts(by_tag[run[0], t]) for t in (run[2], twin))
+        print(f"lever {run[0]} {run[2]} against {twin}: temp "
+              f"{_gb(got[0])} / {_gb(off[0])}; collectives {got[1]} / "
+              f"{off[1]}")
+        if got == off:
+            same.append((run[0], run[2], twin))
+    print(f"lever runs with no lever-off twin in the table: {untwinned}")
+    launches = _read_launches()
+    print(f"{len(runs)} runs in {secs:.1f} s on {DRYRUN_WORKERS} processes "
+          f"from their submission after phase 14 (a), beside phase 14 (b) "
+          f"and phase 15 in the main process ({smi})")
+    if same:
+        raise AssertionError(f"a layout lever changed no count: {same}")
+    if any(launches.values()):
+        raise AssertionError(f"the hill-climb launched {launches}")
     return launches
 
 
@@ -3219,9 +3378,15 @@ def main():
         12, training_path, device, smi)
     served["13 train on a process mesh (no kernel on this path)"] = timed(
         13, sharded_training_path, device, smi)
-    served["14 the dry-run (no kernel on this path)"] = timed(
-        14, dryrun_path, device, smi)
-    served["15 the examples"] = timed(15, examples_path, device, smi)
+    try:  # phases 14 and 16 share their worker processes
+        served["14 the dry-run (no kernel on this path)"] = timed(
+            14, dryrun_path, device, smi)
+        served["15 the examples"] = timed(15, examples_path, device, smi)
+        served["16 the hill-climb (no kernel on this path)"] = timed(
+            16, hillclimb_path, device, smi)
+    finally:
+        for pool in _POOL:
+            pool.shutdown(cancel_futures=True)
     launches = {}
     for path, counts in served.items():
         print(f"launches, {path}: {counts}")

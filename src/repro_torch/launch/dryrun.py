@@ -467,7 +467,7 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     from repro_torch.sharding import dtensor
     from repro_torch.sharding.rules import batch_pspecs, cache_pspecs, \
         cache_stacked, cache_tensors, param_pspecs, tensor_pspecs, \
-        to_shardings, zero1_pspecs
+        to_shardings, zero1_tensor_pspecs
     from repro_torch.train.steps import make_prefill_step, \
         make_serve_step, make_train_step
 
@@ -488,12 +488,16 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     if mesh is None:
         p_sh = m_sh = None
     else:
-        p_sh = shardings(zero1_pspecs(params, mesh, expert_2d=expert_2d)
-                         if fsdp else
-                         param_pspecs(params, mesh, expert_2d=expert_2d),
-                         params)
-        m_sh = shardings(zero1_pspecs(params, mesh, expert_2d=expert_2d),
-                         params) if train and zero1 else None
+        # ZeRO-1 moments and FSDP parameters: `repro`'s fold, per layer
+        folded = to_shardings(zero1_tensor_pspecs(
+            params, mesh, expert_2d=expert_2d), mesh) if zero1 or fsdp \
+            else None
+        unfolded = shardings(param_pspecs(params, mesh, expert_2d=expert_2d),
+                             params)
+        p_sh = folded if fsdp else unfolded
+        # the moments on `repro`'s: folded under zero1, else the rules'
+        m_sh = (folded if zero1 else unfolded) if train and (
+            zero1 or fsdp) else None
     if cell.kind == "decode":
         batch = {"tokens": torch.empty((cell.global_batch, 1),
                                        dtype=torch.int32, device="meta")}
@@ -672,6 +676,7 @@ def run_cell(
                  "embed_backend": rt.embed_backend, "tag": tag,
                  "zero1": zero1, "fsdp": fsdp, "expert_2d": expert_2d,
                  "moe_dp_shards": rt.moe_dp_shards,
+                 "moe_ep_constraint": rt.moe_ep_constraint,
                  "seq_shard_attention": rt.seq_shard_attention},
     )
     if save:

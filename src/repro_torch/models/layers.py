@@ -40,13 +40,22 @@ def _promoted(*ts):
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with mixed dtypes promoted first. On a DTensor whose rows
-    are sharded past their leading dim (a cache sharded on its sequence),
-    which ``@`` would flatten into one and torch 2.11 refuses, it is the
-    shard-by-shard `sharding.dtensor.einsum`."""
+    are sharded past their leading dim (a cache sharded on its sequence, a
+    sequence-sharded activation), which ``@`` would flatten into one and
+    torch 2.11 refuses, it is the shard-by-shard `sharding.dtensor.einsum`.
+    On any other DTensor of more than two dims the flatten into rows is
+    written out: the rows (B * S tokens) and their gradient are fitted for
+    the split back into (B, S) (`sharding.dtensor.fit_split`), which DTensor
+    refuses where it chose to shard the rows over more ranks than B (a
+    replicated batch smaller than the data axis)."""
     a, b = _promoted(a, b)
-    if is_dtensor(a) and shards_inner_dims(a):
+    if not is_dtensor(a) or a.ndim < 3:
+        return a @ b
+    if shards_inner_dims(a):
         return sharded_einsum("...k,kn->...n", a, b)
-    return a @ b
+    lead = a.shape[:-1]
+    rows = fit_merged(a.reshape(-1, a.shape[-1]), 0, lead[0]) @ b
+    return fit_split(rows, 0, lead[0]).reshape(*lead, b.shape[-1])
 
 
 def split_heads(t: torch.Tensor, n_heads: int, *head_shape) -> torch.Tensor:
@@ -243,8 +252,12 @@ def _sdpa(
     group = H // Hkv
     qg = fit_split(q, 2, Hkv).reshape(B, Sq, Hkv, group, hd)
     # on a process mesh: batch and kv heads only stay sharded, so the
-    # result merges (heads, head_dim) with the heads leading
-    qg, k, v = (keep_only(t, (0, 2)) for t in (qg, k, v))
+    # result merges (heads, head_dim) with the heads leading; the queries
+    # keep a sequence sharding (`Runtime.seq_shard_attention`: the scores
+    # stay cut on their query dim), the keys and values cover the whole
+    # sequence
+    qg = keep_only(qg, (0, 1, 2))
+    k, v = (keep_only(t, (0, 2)) for t in (k, v))
     scores = einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
     scores = scores * (hd**-0.5)
     if mask is not None:

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
+from repro_torch.sharding.dtensor import is_dtensor, vocab_nll
 from .transformer import (
     Runtime,
     build_decoder_lm,
@@ -58,8 +59,11 @@ def lm_loss(
     logits, aux = model.forward(params, batch, rt)  # (B, S, V) f32
     tokens = batch["tokens"].to(logits.device)
     targets = tokens[:, 1:].to(torch.int64)
-    logp = F.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if is_dtensor(logits):  # a process mesh: the vocab stays sharded
+        nll = vocab_nll(logits[:, :-1], targets)
+    else:
+        logp = F.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask[:, 1:].to(device=logits.device, dtype=torch.float32)

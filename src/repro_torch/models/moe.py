@@ -31,8 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gather_engine import get_gather_engine
-from repro_torch.sharding.dtensor import fit_merged, fit_split, \
-    replicated
+from repro_torch.sharding.dtensor import batch_local, fit_merged, \
+    fit_split, is_dtensor, replicated, shard_on
 
 from .layers import _dense_init, einsum, ffn_apply, init_ffn, mm
 
@@ -136,6 +136,29 @@ def _dispatch_one_shard(xf, w, idx, *, E, k, C, w_in_e, w_gate_e, w_out_e):
     return y, counts
 
 
+def _build_bufs(xs, ws, es, *, E, k, C):
+    """`_build_buf_local` for each token shard of (n, Tl, ...) tensors
+    (`repro`'s ``vmap``): (buf (n, E, C, D), slot, in_cap, st, sw,
+    counts), each stacked on the shard dim."""
+    parts = [_build_buf_local(x, w, e, E=E, k=k, C=C)
+             for x, w, e in zip(xs, ws, es)]
+    return tuple(torch.stack(f) for f in zip(*parts))
+
+
+def _combine_shards(out, slot, in_cap, st, sw, *, T, E, C):
+    """`_combine_local` for each token shard: y (n, Tl, D)."""
+    return torch.stack([
+        _combine_local(o, sl, ic, s, w_, T=T, E=E, C=C)
+        for o, sl, ic, s, w_ in zip(out, slot, in_cap, st, sw)])
+
+
+def _pin_ep(t: torch.Tensor) -> torch.Tensor:
+    """The (shards, E, ...) buffer or expert output on `repro`'s pinned
+    ``('data', 'model', None, None)``: the shard dim over 'data', the
+    experts over 'model' (other mesh dims as they are)."""
+    return shard_on(shard_on(t, 0, "data"), 1, "model")
+
+
 def moe_apply(
     p,
     x: torch.Tensor,  # (B, S, D)
@@ -150,34 +173,43 @@ def moe_apply(
 
     dp_shards > 1 is data-local dispatch: tokens are viewed as (dp_shards,
     T/dp_shards, ...) and the sort/scatter/combine runs per shard, with a
-    per-shard capacity C (so it changes results, as in `repro`).
-    `ep_constraint` is a layout hint for a device mesh (pin the expert-
-    parallel layout of the buffer); on one device it is a no-op, and the
-    port accepts it for that."""
+    per-shard capacity C (so it changes results, as in `repro`). On a
+    process mesh each rank builds and combines the buffers of its own
+    shards (`sharding.dtensor.batch_local`; all of them where the batch is
+    not cut over 'data'); the expert FFN between runs on DTensors, laid
+    out as DTensor's propagation picks, or, with `ep_constraint`, on the
+    buffer and the experts' output pinned to ('data', 'model') (`repro`'s
+    ``_constrain``). On one device `ep_constraint` changes nothing; on a
+    mesh without the data-local dispatch to pin it raises."""
     B, S, D = x.shape
     E, k = moe.n_experts, moe.top_k
     T = B * S
     xf = fit_merged(x.reshape(T, D), 0, B)
     probs, w, idx = _route(p, xf, k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    local = dp_shards > 1 and T % dp_shards == 0
+    if ep_constraint and is_dtensor(xf) and not local:
+        raise ValueError(
+            f"moe_ep_constraint pins the data-local dispatch buffer, but "
+            f"moe_dp_shards={dp_shards} does not cut {T} tokens into shards")
 
-    if dp_shards > 1 and T % dp_shards == 0:
+    if local:
         Tl = T // dp_shards
         C = max(1, int(capacity_factor * Tl * k / E))
-        parts = [
-            _build_buf(xs, ws, es, E=E, k=k, C=C)
-            for xs, ws, es in zip(xf.reshape(dp_shards, Tl, D),
-                                  w.reshape(dp_shards, Tl, k),
-                                  idx.reshape(dp_shards, Tl, k))
-        ]
-        buf = torch.stack([pt[0] for pt in parts])
+        xs, ws, es = (fit_split(t, 0, dp_shards).reshape(dp_shards, Tl, -1)
+                      for t in (xf, w, idx))
+        buf, *meta, counts = batch_local(functools.partial(
+            _build_bufs, E=E, k=k, C=C), xs, ws, es, batched=(0, 1, 2))
+        if ep_constraint and is_dtensor(buf):
+            buf = _pin_ep(buf)
         out = _expert_ffn(buf, p["w_in_e"], p["w_gate_e"], p["w_out_e"],
                           lead="s")
-        y = torch.cat([
-            _combine_one_shard(o, pt[1], pt[2], pt[3], pt[4], T=Tl, E=E, C=C)
-            for o, pt in zip(out, parts)
-        ])
-        counts = torch.stack([pt[5] for pt in parts]).sum(0)
+        if ep_constraint and is_dtensor(out):
+            out = _pin_ep(out)
+        y = batch_local(functools.partial(_combine_shards, T=Tl, E=E, C=C),
+                        out, *meta, batched=(0, 1, 2, 3, 4))
+        y = fit_merged(y.reshape(T, D), 0, dp_shards)
+        counts = counts.sum(0)
     else:
         C = max(1, int(capacity_factor * T * k / E))
         y, counts = _dispatch_one_shard(

@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
+from repro_torch.sharding.dtensor import is_dtensor, like, shard_on
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -52,9 +53,16 @@ class Runtime:
     `repro`'s ``coalesced``), ``cuda`` (the hand-written `coalesced_gather`
     kernel; `repro`'s ``pallas``) or ``auto`` (cuda on the card, coalesced
     on the CPU). ``remat`` checkpoints each scanned layer under autograd and
-    ``scan_layers`` changes nothing (see the module docstring);
-    ``moe_ep_constraint`` and ``seq_shard_attention`` are
-    layout hints for a device mesh, no-ops on one device."""
+    ``scan_layers`` changes nothing (see the module docstring).
+
+    Two layout levers act on a process mesh (DTensor activations) and
+    change nothing on plain tensors: ``seq_shard_attention`` shards the
+    query sequence over 'model' before attention in training and prefill
+    (`_apply_dense_layer`), so the scores are cut on their query dim;
+    ``moe_ep_constraint`` pins the data-local dispatch buffer and the
+    experts' output to ('data', 'model') (`moe.moe_apply`, with
+    ``moe_dp_shards`` > 1). A lever that cannot be applied on a mesh
+    raises."""
 
     remat: str = "none"  # none | full | dots
     embed_backend: str = "index"  # index | coalesced | cuda | auto
@@ -64,7 +72,7 @@ class Runtime:
     cache_dtype: str = "bfloat16"
     scan_layers: bool = True
     moe_dp_shards: int = 1  # data-local MoE dispatch (per DP shard)
-    moe_ep_constraint: bool = False  # pin the EP layout (mesh only)
+    moe_ep_constraint: bool = False  # pin the EP layout on a mesh
     seq_shard_attention: bool = False  # SP: shard seq over 'model' (mesh)
 
 
@@ -297,6 +305,15 @@ def _apply_dense_layer(
     """Standard pre-norm decoder layer (GQA or MLA; FFN or MoE).
     Returns (x, new_kv_cache, aux_loss)."""
     h = L.rmsnorm_apply(p["attn_norm"], x, cfg.norm_eps)
+    seq_sharded = rt.seq_shard_attention and kv_cache is None \
+        and x.shape[1] > 1 and is_dtensor(h)
+    if seq_sharded:
+        # SP for attention (`repro`'s ``_constrain(h, (None, "model",
+        # None))``): the query sequence over 'model', so archs whose head
+        # count doesn't divide the model axis (smollm: 15 heads) don't
+        # replicate the quadratic scores on every model shard; the batch
+        # keeps its data sharding
+        h = shard_on(h, 1, "model")
     if cfg.mla is not None:
         attn_out, new_kv = L.mla_apply(
             p["attn"], h, n_heads=cfg.n_heads, mla=cfg.mla,
@@ -310,6 +327,8 @@ def _apply_dense_layer(
             rope_theta=cfg.rope_theta, kv_cache=kv_cache,
             cache_index=cache_index,
         )
+    if seq_sharded:  # back on the residual's layout
+        attn_out = like(attn_out, x)
     x = x + attn_out
     h = L.rmsnorm_apply(p["ffn_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -17,7 +17,8 @@ port's counterpart of `jax.device_put` onto ``NamedSharding``s.
     rank of the mesh must call it, in the same order (a rank-0-only call,
     for a log line or a write, hangs the grid).
   * `vocab_lookup(table, ids)`: the embedding lookup in a vocab-sharded
-    table.
+    table; `vocab_nll(logits, targets)`: the next-token loss of
+    vocab-sharded logits.
   * `einsum(eq, *ops)`: an einsum of DTensor operands contracted shard by
     shard on the letters the output keeps.
   * `replicated(fn, *args)`: ``fn`` on the replicated local values of
@@ -28,6 +29,8 @@ port's counterpart of `jax.device_put` onto ``NamedSharding``s.
     DTensor lacks (``log_sigmoid_backward``, ``flip``).
   * `keep_only(t, dims)`: only `dims` left sharded, before a reshape that
     merges a sharded dim into the one before it.
+  * `shard_on(t, dim, axis)`: `dim` sharded over a named mesh axis (the
+    sequence-sharded attention).
   * `fit_split(t, dim, parts)`: `dim` left sharded only where its shards
     hold whole parts, before a reshape that splits it (into heads);
     `fit_merged` the same for the gradient of a merge.
@@ -254,6 +257,25 @@ def keep_only(t: torch.Tensor, dims) -> torch.Tensor:
             for p in t.placements]))
 
 
+def shard_on(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """A DTensor redistributed so that its dim `dim` is sharded over the
+    mesh dim named `axis`, every other mesh dim's placement kept; its
+    gradient comes back on `t`'s placements. A layout lever
+    (`Runtime.seq_shard_attention`): on a mesh without `axis` it raises,
+    never leaving the layout as it was. A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Shard
+
+    names = list(t.device_mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"cannot shard dim {dim} over {axis!r}: the mesh's "
+                         f"axes are {names}")
+    want = list(t.placements)
+    want[names.index(axis)] = Shard(dim % t.ndim)
+    return redistribute(t, want)
+
+
 def shards_inner_dims(t) -> bool:
     """Whether the DTensor `t` is split on a dim other than its first and
     its last (one that a matmul's flatten would merge into the dim before
@@ -362,6 +384,19 @@ class _VocabShardLookup(torch.autograd.Function):
         return table_grad, None, None, None
 
 
+def _first_row(mesh, sharded, n: int) -> int:
+    """The first of the `n` rows this rank holds of a dim split over the
+    mesh dims flagged in `sharded` (``torch.chunk``'s split, in mesh-dim
+    order)."""
+    lo = 0
+    for i, v in enumerate(sharded):
+        if v:
+            chunk = -(-n // mesh.size(i))
+            lo += chunk * mesh.get_local_rank(i)
+            n = max(0, min(chunk, n - chunk * mesh.get_local_rank(i)))
+    return lo
+
+
 def vocab_lookup(table, ids):
     """``table[ids]`` of a DTensor table whose rows (the vocabulary) are
     sharded over some mesh dims: each rank looks up the ids in its own
@@ -380,12 +415,7 @@ def vocab_lookup(table, ids):
               for v, p in zip(vocab, ids.placements)]
     table = redistribute(table, want_t)
     ids = redistribute(ids, want_i)
-    lo, n = 0, table.shape[0]
-    for i, v in enumerate(vocab):
-        if v:  # torch.chunk's split, in mesh-dim order
-            chunk = -(-n // mesh.size(i))
-            lo += chunk * mesh.get_local_rank(i)
-            n = max(0, min(chunk, n - chunk * mesh.get_local_rank(i)))
+    lo = _first_row(mesh, vocab, table.shape[0])
     groups = [mesh.get_group(i) for i, v in enumerate(vocab)
               if v and mesh.size(i) > 1]
     local_table = _local(table, [Partial() if isinstance(pi, Shard) else pt
@@ -395,13 +425,88 @@ def vocab_lookup(table, ids):
                 shape=tuple(ids.shape) + (table.shape[1],))
 
 
+class _VocabShardNLL(torch.autograd.Function):
+    """``-log_softmax(logits)[targets]`` of this rank's vocab columns
+    ``[lo, lo + V_local)`` of the logits, the softmax's max and sum and the
+    picked target logit reduced over `groups` (the vocab shards).
+    Backward: ``(softmax - onehot) * grad`` on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, groups):
+        import torch.distributed as dist
+
+        m = logits.amax(-1)
+        for group in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        z = logits - m[..., None]
+        e = torch.exp(z)
+        total = e.sum(-1)
+        inside = (targets >= lo) & (targets < lo + logits.shape[-1])
+        local = torch.where(inside, targets - lo, torch.zeros_like(targets))
+        picked = torch.where(inside, torch.gather(z, -1, local[..., None])[
+            ..., 0], torch.zeros_like(m))
+        for group in groups:
+            dist.all_reduce(total, group=group)
+            dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(e, total, local, inside)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, local, inside = ctx.saved_tensors
+        onehot = torch.zeros_like(e).scatter_(
+            -1, local[..., None], inside[..., None].to(e.dtype))
+        return (e / total[..., None] - onehot) * grad[..., None], None, \
+            None, None
+
+
+def vocab_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``-log_softmax(logits, -1).gather(-1, targets[..., None])[..., 0]``
+    of DTensor logits whose last dim (the vocabulary) is sharded over some
+    mesh dims: each rank works on its own columns and reduces the
+    softmax's max and sum and the target's logit over those mesh dims (an
+    all-reduce of (..,) rows, not a gather of the logits). The other
+    leading dims keep their sharding (the batch over 'data'), and so does
+    the result; `targets` (plain or DTensor) is laid out to match. On no
+    vocab sharding it is the unsharded formula on the local rows."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    if not is_dtensor(targets):
+        targets = replicated_value(targets, mesh)
+    vocab = [isinstance(p, Shard) and p.dim == last and mesh.size(i) > 1
+             for i, p in enumerate(logits.placements)]
+    want_l = [Shard(last) if v else p if isinstance(p, Shard)
+              and p.dim != last else Replicate()
+              for v, p in zip(vocab, logits.placements)]
+    want_t = [Replicate() if v else p for v, p in zip(vocab, want_l)]
+    logits = redistribute(logits, want_l)
+    targets = redistribute(targets, want_t)
+    local_logits, local_t = _local(logits, want_l), targets.to_local()
+    if not any(vocab):
+        logp = F.log_softmax(local_logits, dim=-1)
+        nll = -torch.gather(logp, -1, local_t[..., None])[..., 0]
+    else:
+        groups = [mesh.get_group(i) for i, v in enumerate(vocab) if v]
+        nll = _VocabShardNLL.apply(local_logits, local_t, _first_row(
+            mesh, vocab, logits.shape[-1]), groups)
+    return wrap(nll, mesh, want_t, shape=tuple(targets.shape))
+
+
 def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """`t` redistributed to `ref`'s placements when both are DTensors: a
-    gradient's pending data-axis ``Partial(sum)`` becomes the reduced
-    gradient on its parameter's layout."""
-    if is_dtensor(t) and is_dtensor(ref):
-        return redistribute(t, ref.placements)
-    return t
+    """`t` redistributed to `ref`'s placements when both are DTensors, a
+    pending sum of `ref`'s read as replicated (DTensor keeps a residual
+    stream ``Partial`` after an add, and refuses to redistribute to one):
+    a gradient's pending data-axis ``Partial(sum)`` becomes the reduced
+    gradient on its parameter's layout; an activation goes back to the
+    residual's."""
+    if not (is_dtensor(t) and is_dtensor(ref)):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return redistribute(t, [Replicate() if p.is_partial() else p
+                            for p in ref.placements])
 
 
 def replicated(fn: Callable, *args):

@@ -290,40 +290,71 @@ def cache_pspecs(cfg, cache, mesh) -> Dict[str, Spec]:
             _leaf_shapes(cache_tensors(cache), cache_stacked(cfg, cache))}
 
 
+def _fold_dp(shape, spec, dp: tuple, dp_size: int) -> Spec:
+    """`spec` (entries for the leading dims of `shape`) with the DP axes
+    folded onto the first still-unsharded dim of `shape` that they divide,
+    unless a dim already names one of them (a 2-D expert shard)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        if e is None:
+            continue
+        used.update((e,) if isinstance(e, str) else tuple(e))
+    if used & set(dp):  # DP axes already consumed (e.g. 2D expert shard)
+        return _spec(entries)
+    for dim in range(len(shape)):
+        if entries[dim] is None and shape[dim] % dp_size == 0 \
+                and shape[dim] >= dp_size:
+            entries[dim] = dp
+            break
+    return _spec(entries)
+
+
 def zero1_pspecs(params, mesh, *, expert_2d: bool = False) -> Dict[str, Spec]:
     """ZeRO-1: optimizer-moment specs = param specs + the DP axes folded onto
     the first still-unsharded divisible dim (a stacked layer axis included,
     as in `repro`). Cuts f32 moment memory by the DP degree."""
-    sizes = axis_sizes(mesh)
-    dp, dp_size = _dp(sizes)
+    dp, dp_size = _dp(axis_sizes(mesh))
     base = param_pspecs(params, mesh, expert_2d=expert_2d)
-
-    def extend(shape, spec):
-        entries = list(spec) + [None] * (len(shape) - len(spec))
-        used = set()
-        for e in entries:
-            if e is None:
-                continue
-            used.update((e,) if isinstance(e, str) else tuple(e))
-        if used & set(dp):  # DP axes already consumed (e.g. 2D expert shard)
-            return _spec(entries)
-        for dim in range(len(shape)):
-            if entries[dim] is None and shape[dim] % dp_size == 0 \
-                    and shape[dim] >= dp_size:
-                entries[dim] = dp
-                break
-        return _spec(entries)
-
-    return {key: extend(shape, base[key])
+    return {key: _fold_dp(shape, base[key], dp, dp_size)
             for key, shape in _leaf_shapes(params)}
+
+
+def zero1_tensor_pspecs(params, mesh, *, expert_2d: bool = False
+                        ) -> Dict[str, Spec]:
+    """{port tensor name: spec} of `zero1_pspecs` (the ZeRO-1 moments, and
+    the parameters under FSDP). Where `repro` folds the DP axes onto a
+    stacked layer axis, the port, which holds one tensor a layer, folds
+    them onto the first still-unsharded dim of each layer's tensor that
+    they divide: the same bytes a device (L/dp layers whole, or L layers
+    each cut dp ways). A layer with no such dim keeps its parameter spec
+    (ROADMAP C27)."""
+    dp, dp_size = _dp(axis_sizes(mesh))
+    base = param_pspecs(params, mesh, expert_2d=expert_2d)
+    named = named_tensors(params)
+    out = {}
+    for leaf in leaves(params):
+        n = len(leaf.lead)
+        layer = tuple(named[leaf.names[0]].shape)
+        spec = tuple(_fold_dp(tuple(leaf.lead) + layer, base[leaf.key], dp,
+                              dp_size))  # `zero1_pspecs`' leaf
+        if any(e is not None for e in spec[:n]):
+            own = tuple(base[leaf.key]) + (None,) * (n + len(layer)
+                                                     - len(base[leaf.key]))
+            spec = _fold_dp(layer, own[n:], dp, dp_size)
+        else:
+            spec = spec[n:]
+        for name in leaf.names:
+            out[name] = spec
+    return out
 
 
 def tensor_pspecs(tree, leaf_specs: Dict[str, Spec],
                   stacked=None) -> Dict[str, Spec]:
     """{port tensor name: spec}: each `repro` leaf's spec with its stacked
     prefix dropped, for every tensor stacked into it. A spec that shards a
-    stacked layer axis (`zero1_pspecs` may) has no per-layer form and
-    raises."""
+    stacked layer axis has no per-layer form and raises (`zero1_pspecs`'
+    fold has one: `zero1_tensor_pspecs`)."""
     out = {}
     for leaf in leaves(tree, stacked):
         spec = tuple(leaf_specs[leaf.key])

@@ -11,9 +11,13 @@ and the shapes of its own shards. `run_cases` runs a list of cases in one
 process group, each on its own mesh, so one spawn serves many checks:
 
   * ``update``: `lm_loss`'s value and gradients, then one `make_train_step`
-    (or a `make_update_fn` with microbatches or compression) update;
+    (or a `make_update_fn` with microbatches or compression) update, under
+    the case's `Runtime` fields (the layout levers) and optionally with
+    ZeRO-1 moments;
   * ``embed``: the index embedding of data-sharded ids in a vocab-sharded
     table (`repro`'s C5 site);
+  * ``nll``: the next-token loss of vocab-sharded logits and its
+    gradient;
   * ``checkpoint``: a save on one mesh, a restore on another;
   * ``train``: `train()` on the mesh from the seed.
 
@@ -22,7 +26,8 @@ the same inputs: `repro`'s jitted single-device step in the CPU tests, or
 `port_reference` (the port on one device) in ``python -m
 repro_torch.train.grid``, which runs every reduced family's update on a
 2x2 grid of four gloo ranks (`family_cases`; reduced tinyllama's also on
-1x4 and 4x1 and at microbatches 2 with compression) and exits 1 on a case
+1x4 and 4x1 and at microbatches 2 with compression; the layout levers and
+ZeRO-1, `lever_cases`) and exits 1 on a case
 outside its tolerance: the check of the grid under a machine's own torch,
 without JAX.
 """
@@ -41,11 +46,12 @@ from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.models import Runtime, build_model, lm_loss, \
     param_shapes
 from repro_torch.optim.compression import init_residual
-from repro_torch.optim.optimizer import OptConfig, init_opt_state
-from repro_torch.optim.tree import named_tensors
-from repro_torch.sharding.dtensor import mesh_device
+from repro_torch.optim.optimizer import OptConfig, OptState, init_opt_state
+from repro_torch.optim.tree import map_tree, named_tensors
+from repro_torch.sharding.dtensor import distribute_module, \
+    holds_dtensors, mesh_device
 from repro_torch.sharding.rules import batch_pspecs, param_pspecs, \
-    param_shardings, tensor_pspecs, to_shardings
+    param_shardings, tensor_pspecs, to_shardings, zero1_tensor_pspecs
 from repro_torch.train.checkpoint import restore_latest, save_checkpoint
 from repro_torch.train.fault_tolerance import remesh_shardings
 from repro_torch.train.loop import TrainConfig, make_update_fn, \
@@ -80,14 +86,33 @@ def _placed(cfg, case, mesh):
     return params, batch
 
 
+def _zero1_state(cfg, params) -> OptState:
+    """Zero AdamW moments on the ZeRO-1 layout of `params`' mesh
+    (`rules.zero1_tensor_pspecs`: `repro`'s fold, per layer)."""
+    mesh = next(iter(named_tensors(params).values())).device_mesh
+    device = mesh_device(mesh)
+    shapes = param_shapes(cfg)
+    sh = to_shardings(zero1_tensor_pspecs(shapes, mesh), mesh)
+
+    def moment():
+        zeros = map_tree(lambda t: torch.zeros(t.shape, dtype=torch.float32),
+                         shapes)
+        return distribute_module(zeros, sh, device=device)
+
+    return OptState(mu=moment(), nu=moment(), step=torch.zeros(
+        (), dtype=torch.int32, device=device))
+
+
 def _update(case: Dict[str, Any], params, batch) -> Dict[str, Any]:
     """`lm_loss`'s value and gradients, then one update, of `params` on
     `batch` (DTensors on a mesh, or plain tensors on one device): the
     numbers `update_errors` compares. ``tcfg`` (TrainConfig fields) runs
-    `make_update_fn`; without it `make_train_step`."""
+    `make_update_fn`; without it `make_train_step`. ``runtime`` holds
+    `Runtime` fields (the layout levers); ``zero1`` places the moments on
+    a mesh as ZeRO-1 does (one device: the parameters' layout)."""
     cfg = _cfg(case)
     model = build_model(cfg)
-    rt = Runtime()
+    rt = Runtime(**case.get("runtime", {}))
     out: Dict[str, Any] = {}
     if case.get("grads", True):
         loss, grads = value_and_grad(
@@ -95,7 +120,8 @@ def _update(case: Dict[str, Any], params, batch) -> Dict[str, Any]:
         out["loss"] = float(loss)
         out["grads"] = model_params_to_numpy(cfg, grads)
         del grads
-    opt = init_opt_state(params)
+    opt = _zero1_state(cfg, params) if case.get("zero1") and \
+        holds_dtensors(params) else init_opt_state(params)
     opt_cfg = OptConfig(**case.get("opt", {}))
     if case.get("tcfg") is None:
         _, opt, metrics = make_train_step(model, opt_cfg, rt)(
@@ -111,6 +137,8 @@ def _update(case: Dict[str, Any], params, batch) -> Dict[str, Any]:
     out["opt"] = opt_state_to_numpy(cfg, opt)
     out["moment_dtensors"] = sorted({type(t).__name__ for t in
                                      named_tensors(opt.mu).values()})
+    if holds_dtensors(opt.mu):
+        out["moment_shard_shapes"] = _local_shapes(opt.mu)
     return out
 
 
@@ -150,6 +178,25 @@ def embed_case(case: Dict[str, Any]) -> Dict[str, Any]:
     got = embedding_apply({"embed": distribute(table, tsh)},
                           distribute(ids, ish))
     return {"out": full(got).numpy(), "placements": repr(got.placements)}
+
+
+def nll_case(case: Dict[str, Any]) -> Dict[str, Any]:
+    """`sharding.dtensor.vocab_nll` of the case's logits (B, S, V), laid
+    out with the batch over 'data' and the vocabulary over 'model', and the
+    gradient of ``sum(nll * weights)`` in them, gathered."""
+    from repro_torch.sharding.dtensor import distribute, full, vocab_nll
+
+    mesh = make_process_mesh(*case["mesh"], device=case.get("device"))
+    sh = to_shardings({"logits": ("data", None, "model"),
+                       "rows": ("data", None)}, mesh)
+    logits = distribute(torch.from_numpy(case["logits"]),
+                        sh["logits"]).requires_grad_()
+    rows = {k: distribute(torch.from_numpy(case[k]), sh["rows"])
+            for k in ("targets", "weights")}
+    nll = vocab_nll(logits, rows["targets"])
+    (grad,) = torch.autograd.grad((nll * rows["weights"]).sum(), logits)
+    return {"nll": full(nll).detach().numpy(), "grad": full(grad).numpy(),
+            "placements": repr(nll.placements)}
 
 
 def checkpoint_case(case: Dict[str, Any]) -> Dict[str, Any]:
@@ -206,7 +253,7 @@ def train_case(case: Dict[str, Any]) -> Dict[str, Any]:
             "shard_shapes": _local_shapes(out["params"])}
 
 
-CASES = {"update": update_case, "embed": embed_case,
+CASES = {"update": update_case, "embed": embed_case, "nll": nll_case,
          "checkpoint": checkpoint_case, "train": train_case}
 
 
@@ -242,6 +289,64 @@ def family_cases(inputs: Dict[str, tuple]) -> List[Dict[str, Any]]:
     return [dict(kind="update", arch=name, mesh=FAMILY_MESH, device="cpu",
                  params=params, batch=batch)
             for name, (params, batch) in inputs.items()]
+
+
+# The layout levers and ZeRO-1 on the 2x2 grid: reduced smollm's 1 kv head
+# on a model axis of 2 (its queries' heads replicated) with the sequence
+# sharded over 'model'; reduced deepseek's data-local dispatch pinned to
+# ('data', 'model') and unpinned; reduced smollm's moments folded over
+# 'data' per layer.
+LEVER_CASES = (
+    ("smollm-360m", dict(runtime=dict(seq_shard_attention=True))),
+    ("deepseek-v2-lite-16b",
+     dict(runtime=dict(moe_dp_shards=2, moe_ep_constraint=True))),
+    ("deepseek-v2-lite-16b", dict(runtime=dict(moe_dp_shards=2))),
+    ("smollm-360m", dict(zero1=True)),
+)
+
+
+def lever_cases(inputs: Dict[str, tuple]) -> List[Dict[str, Any]]:
+    """The ``update`` cases of `LEVER_CASES` on the 2x2 mesh, on `inputs`
+    ({arch name: (numpy parameters, numpy batch)})."""
+    return [dict(kind="update", arch=name, mesh=FAMILY_MESH, device="cpu",
+                 params=inputs[name][0], batch=inputs[name][1], **extra)
+            for name, extra in LEVER_CASES]
+
+
+def nll_reference(case: Dict[str, Any]) -> Dict[str, Any]:
+    """An ``nll`` case on one device: ``-log_softmax(logits)[targets]`` and
+    the gradient of ``sum(nll * weights)``."""
+    logits = torch.from_numpy(case["logits"]).requires_grad_()
+    logp = torch.log_softmax(logits, -1)
+    nll = -torch.gather(logp, -1, torch.from_numpy(case["targets"])[
+        ..., None])[..., 0]
+    (grad,) = torch.autograd.grad(
+        (nll * torch.from_numpy(case["weights"])).sum(), logits)
+    return {"nll": nll.detach().numpy(), "grad": grad.numpy()}
+
+
+def nll_cases() -> List[Dict[str, Any]]:
+    """An ``nll`` case on the 2x2 mesh: logits (4, 6, 24), 12 vocabulary
+    columns a model rank, targets on both halves, drawn from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    return [dict(kind="nll", mesh=FAMILY_MESH, device="cpu",
+                 logits=(3 * rng.standard_normal((4, 6, 24))).astype(
+                     np.float32),
+                 targets=rng.integers(0, 24, (4, 6)),
+                 weights=rng.standard_normal((4, 6)).astype(np.float32))]
+
+
+NLL_RTOL, NLL_ATOL, NLL_GRAD_ATOL = 1e-6, 1e-6, 1e-7
+
+
+def nll_errors(got: Dict[str, Any], want: Dict[str, Any]) -> Dict[str, float]:
+    """An ``nll`` case's loss and gradient against `nll_reference`'s, as
+    their worst error over ``NLL_ATOL + NLL_RTOL * |want|``."""
+    return {key: _worst(got[key], want[key],
+                        lambda w, atol=atol: atol + NLL_RTOL * abs(w))
+            for key, atol in (("nll", NLL_ATOL), ("grad", NLL_GRAD_ATOL))}
 
 
 def _leaves(tree, path="") -> list:
@@ -322,10 +427,11 @@ def update_errors(got: Dict[str, Any], want: Dict[str, Any], *,
 
 
 def main() -> int:
-    """Every reduced family's update on a 2x2 grid of four gloo ranks, and
+    """Every reduced family's update on a 2x2 grid of four gloo ranks,
     reduced tinyllama's on 1x4 and 4x1 and at microbatches 2 with
-    compression, against `port_reference`; exit 1 on a case outside its
-    tolerance."""
+    compression, and `LEVER_CASES`, against `port_reference`, and the
+    vocab-sharded loss (`nll_cases`) against `nll_reference`; exit 1 on a
+    case outside its tolerance."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import run_grid
     from repro_torch.models import make_input_batch
@@ -345,18 +451,28 @@ def main() -> int:
     cases = family_cases(inputs) + [
         dict(tiny, mesh=(1, 4)), dict(tiny, mesh=(4, 1)),
         dict(tiny, mesh=(2, 2), grads=False,
-             tcfg=dict(microbatches=2, grad_compression=True))]
+             tcfg=dict(microbatches=2, grad_compression=True))] + \
+        lever_cases(inputs) + nll_cases()
     t0 = time.perf_counter()
     results = run_grid(run_cases, 4, (cases,), timeout=900)[0]
     print(f"torch {torch.__version__}: {len(cases)} cases on a grid of 4 "
           f"gloo ranks in {time.perf_counter() - t0:.1f} s")
     failed = 0
     for case, res in zip(cases, results):
+        if case["kind"] == "nll":
+            errs = nll_errors(res, nll_reference(case))
+            failed += max(errs.values()) > 1
+            print(f"vocab-sharded loss {case['mesh']}: {res['seconds']:.1f} "
+                  f"s; errors over their tolerances " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items()))
+            continue
         errs = update_errors(res, port_reference(case), compression=bool(
             (case.get("tcfg") or {}).get("grad_compression")))
         ok = max(errs.values()) <= 1
         failed += not ok
-        print(f"{case['arch']} {case['mesh']} {case.get('tcfg') or ''}: "
+        extra = {k: case[k] for k in ("tcfg", "runtime", "zero1")
+                 if case.get(k)}
+        print(f"{case['arch']} {case['mesh']} {extra or ''}: "
               f"{res['seconds']:.1f} s; errors over their tolerances "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
               + ("" if ok else " FAIL"))

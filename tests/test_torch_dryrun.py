@@ -95,7 +95,8 @@ def _repro_params(name):
                           jax.random.PRNGKey(0))
 
 
-def _repro_argument_bytes(name, cell, mesh_key) -> int:
+def _repro_argument_bytes(name, cell, mesh_key, *, zero1=False,
+                          fsdp=False) -> int:
     """What `repro`'s dry-run feeds its compiled step, per device: its
     rules (`param_pspecs`, `batch_pspecs`, `cache_pspecs`) on
     `jax.eval_shape` trees, as `repro.launch.dryrun.run_cell` builds them
@@ -107,7 +108,9 @@ def _repro_argument_bytes(name, cell, mesh_key) -> int:
     sizes = dict(zip(names, shape))
     cfg = J_ARCHS[name]
     params = _repro_params(name)
-    total = _tree_bytes(params, jrules.param_pspecs(params, mesh), sizes)
+    folded = jrules.zero1_pspecs(params, mesh)
+    total = _tree_bytes(params, folded if fsdp else
+                        jrules.param_pspecs(params, mesh), sizes)
     if cell.kind == "decode":
         model = j_build_model(cfg)
         cache = jax.eval_shape(lambda: model.init_cache(
@@ -128,7 +131,7 @@ def _repro_argument_bytes(name, cell, mesh_key) -> int:
     total += _tree_bytes(batch, jrules.batch_pspecs(batch, mesh), sizes)
     if cell.kind == "train":
         opt = jax.eval_shape(j_init_opt_state, params)
-        moments = jrules.param_pspecs(params, mesh)
+        moments = folded if zero1 else jrules.param_pspecs(params, mesh)
         total += 2 * _tree_bytes(opt.mu, moments, sizes) + 4  # + step
     return total
 
@@ -174,6 +177,88 @@ def test_argument_bytes_equal_repros_rules_on_every_cell(mesh_key):
         index = 4 if cell.kind == "decode" else 0
         got[name, shape] = dr.local_bytes(args) + index
         want[name, shape] = _repro_argument_bytes(name, cell, mesh_key)
+    assert got == want
+
+
+# The leaves whose ZeRO-1 fold `repro` puts on the stacked layer axis while
+# the port's per-layer tensor has no free dim the DP axes divide
+# (`_fold_exceptions`): whisper-large-v3's q/k/v and FFN-in
+# biases, (32, 1280) in `repro` with 1280 on 'model', so one (1280,) tensor a
+# layer, already model-sharded (ROADMAP C27).
+FOLD_EXCEPTIONS = {"whisper-large-v3": [
+    f"['{stack}']['{block}']['{b}']"
+    for stack, blocks in (("dec", ("cross_attn", "self_attn")),
+                          ("enc", ("attn",)))
+    for block in blocks for b in ("bk", "bq", "bv")]
+    + ["['dec']['ffn']['b_in']", "['enc']['ffn']['b_in']"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_exceptions(name, mesh_key) -> list:
+    """The keystrs of the leaves of `name`'s parameters whose
+    `rules.zero1_pspecs` spec shards a stacked layer axis and whose
+    `rules.zero1_tensor_pspecs` spec names no DP axis, once a module."""
+    from repro_torch.optim.tree import leaves
+    from repro_torch.sharding import rules
+
+    params, mesh = dr._param_shapes(ARCHS[name]), FakeMesh(*MESHES[mesh_key])
+    folded = rules.zero1_pspecs(params, mesh)
+    per_tensor = rules.zero1_tensor_pspecs(params, mesh)
+    return sorted(
+        leaf.key for leaf in leaves(params)
+        if any(e is not None for e in folded[leaf.key][:len(leaf.lead)])
+        and not {"data", ("pod", "data")} & set(per_tensor[leaf.names[0]]))
+
+
+def _fold_exception_bytes(name, mesh_key, *, zero1, fsdp) -> int:
+    """What rank 0 holds more than `repro` of the `FOLD_EXCEPTIONS` leaves:
+    each is model-sharded only, where `repro` also cuts its layer axis
+    dp ways (the moments twice in float32 under `zero1`, a train cell's,
+    the parameters in their dtype under `fsdp`)."""
+    shape, names = MESHES[mesh_key]
+    sizes = dict(zip(names, shape))
+    dp = sizes["data"] * sizes.get("pod", 1)
+    params = _repro_params(name)
+    flat = {jax.tree_util.keystr(p): x for p, x in
+            jax.tree_util.tree_leaves_with_path(params)}
+    extra = 0
+    for key in FOLD_EXCEPTIONS.get(name, []):
+        x = flat[key]
+        per_layer = x.size // x.shape[0] // sizes["model"]
+        held = x.shape[0] * per_layer  # every layer, model-sharded
+        want = x.shape[0] // dp * per_layer
+        extra += (held - want) * (2 * 4 * zero1 + x.dtype.itemsize * fsdp)
+    return extra
+
+
+@pytest.mark.parametrize("mode", ["zero1", "fsdp"])
+@pytest.mark.parametrize("mesh_key", sorted(MESHES))
+def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
+    """(i) on every cell with ``zero1=True`` (a train cell's moments) or
+    ``fsdp=True`` (the parameters too, a train cell's moments on the
+    parameters' rules): where `repro` folds the DP axes onto a stacked
+    layer axis (smollm-360m, llama3-8b, whisper-large-v3) the port folds
+    them onto each layer's tensor (`rules.zero1_tensor_pspecs`), the same
+    bytes a device, but for the named `FOLD_EXCEPTIONS`, which hold their
+    stated difference more."""
+    mesh = FakeMesh(*MESHES[mesh_key])
+    got, want = {}, {}
+    for name, shape in CELLS:
+        cell = dr.SHAPES_BY_NAME[shape]
+        train = cell.kind == "train"
+        flags = {"zero1": mode == "zero1", "fsdp": mode == "fsdp"}
+        assert _fold_exceptions(name, mesh_key) == \
+            sorted(FOLD_EXCEPTIONS.get(name, []))
+        _, args = dr.step_inputs(ARCHS[name], cell, dr.default_runtime(cell),
+                                 mesh=mesh, device="meta", make=_local_meta,
+                                 **flags)
+        index = 4 if cell.kind == "decode" else 0
+        got[name, shape] = dr.local_bytes(args) + index
+        want[name, shape] = _repro_argument_bytes(
+            name, cell, mesh_key, **flags) + _fold_exception_bytes(
+            name, mesh_key, zero1=flags["zero1"] and train,
+            fsdp=flags["fsdp"])
+    assert len(got) == 32
     assert got == want
 
 
@@ -341,19 +426,32 @@ def test_full_size_cell_runs_with_nothing_real():
     assert grown < 2e9
 
 
-def test_zero1_without_a_per_layer_form_reports_the_cell_failed():
+def test_zero1_without_a_per_layer_form_reports_the_cell_failed(
+        monkeypatch):
     """``zero1`` folds 'data' onto reduced smollm's stacked layer axis (2
-    layers on 2): the port holds one tensor a layer, so the cell fails
-    with that error, as `repro` reports a failing cell (ROADMAP C)."""
+    layers on 2). The port holds one tensor a layer and folds 'data' onto
+    each layer's tensor instead (`rules.zero1_tensor_pspecs`), so the cell
+    runs; a spec on a stacked axis taken as it is has no per-layer form,
+    `rules.tensor_pspecs` raises on it, and a cell laid out so reports
+    ``ok=False`` with that error, as `repro` reports a failing cell."""
+    from repro_torch.sharding import rules
+
     cfg, cell = get_arch("smollm-360m").reduced(), MINI["train_mini"]
     assert cfg.n_layers % 2 == 0
     res = dr.run_cell(cfg, cell, save=False, device="cpu",
                       mesh_shape=(2, 2), zero1=True)
-    assert not res.ok
-    assert "shards a stacked layer axis" in res.error
+    assert res.ok, res.error
     assert res.runtime["zero1"] is True
-    ok = dr.run_cell(cfg, cell, save=False, device="cpu", mesh_shape=(2, 2))
-    assert ok.ok, ok.error
+    params = dr._param_shapes(cfg)
+    with pytest.raises(ValueError, match="shards a stacked layer axis"):
+        rules.tensor_pspecs(params, rules.zero1_pspecs(
+            params, FakeMesh((2, 2), ("data", "model"))))
+    monkeypatch.setattr(rules, "zero1_tensor_pspecs", lambda p, mesh, **kw: (
+        rules.tensor_pspecs(p, rules.zero1_pspecs(p, mesh, **kw))))
+    failed = dr.run_cell(cfg, cell, save=False, device="cpu",
+                         mesh_shape=(2, 2), zero1=True)
+    assert not failed.ok
+    assert "shards a stacked layer axis" in failed.error
 
 
 def test_a_real_tensor_in_the_step_raises():
@@ -401,7 +499,8 @@ def test_main_writes_repros_json(tmp_path, monkeypatch, capsys):
     assert {"total_bytes", "op_count"} <= set(res["collectives"])
     assert set(res["runtime"]) == {
         "remat", "scan_layers", "embed_backend", "tag", "zero1", "fsdp",
-        "expert_2d", "moe_dp_shards", "seq_shard_attention"}
+        "expert_2d", "moe_dp_shards", "moe_ep_constraint",
+        "seq_shard_attention"}
 
 
 def test_main_without_a_card_raises(monkeypatch):
