@@ -1948,30 +1948,50 @@ def _finite(name, *tensors):
         raise AssertionError(f"{name}: logits that are not finite")
 
 
-def _recording(model, logits, tokens, seconds):
-    """`model` whose decode_step keeps each step's input ids, its logits and
-    its host seconds (synchronised)."""
+def _recorder(logits, tokens, seconds):
+    """A `generate` step hook that keeps each step's input ids, its logits
+    (the prefill's and every step's, cloned: a replay's are the graph's
+    buffer) and its host seconds by kind (synchronised)."""
     import torch
 
-    step = model.decode_step
-
-    def decode_step(p, toks, cache, rt):
+    def hook(kind, toks, run):
         t0 = time.perf_counter()
-        out, cache = step(p, toks, cache, rt)
+        out = run()
         torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        tokens.append(toks.clone())
-        logits.append(out.clone())
-        return out, cache
+        seconds.setdefault(kind, []).append(time.perf_counter() - t0)
+        if kind != "capture":
+            tokens.append(toks.clone())
+            logits.append(out.clone())
+        return out
 
-    return dataclasses.replace(model, decode_step=decode_step)
+    return hook
+
+
+# Phase 11 (b): the embeddings, eager and captured, in turns (eager,
+# captured, captured, eager for each)
+GEN_RUNS = (("index", False), ("index", True), ("index", True),
+            ("index", False), ("cuda", True), ("cuda", False),
+            ("cuda", False), ("cuda", True))
+
+
+def _step_kinds(secs, captured, steps):
+    """The steps `generate` ran, by kind, as it must run them: the prefill,
+    then every step eager, or the first eager (the capture's warm-up), one
+    capture and a replay a token after it."""
+    want = {"prefill": 1, "step": 1, "capture": 1, "replay": steps - 1} \
+        if captured else {"prefill": 1, "step": steps}
+    got = {k: len(v) for k, v in secs.items()}
+    if got != want:
+        raise AssertionError(f"generate ran steps {got}, expected {want}")
 
 
 def generation_path(device, smi):
-    """Phase 11: (a) serve --arch llama3-8b (index embedding), (b) the same
-    prompts through `generate` with the hand-written gather as the embedding,
-    (c) prefill against token-by-token decode, (d) the other families at
-    full width. Returns the launches of (a) and (b) and (b)'s id streams."""
+    """Phase 11: (a) serve --arch llama3-8b (index embedding, the step
+    captured), (b) the same prompts through `generate` with the index and
+    the hand-written gather as the embedding, each eager and captured, in
+    turns, (c) prefill against token-by-token decode, (d) the other
+    families at full width, captured against eager. Returns the launches
+    of (a) and of (b)'s first captured cuda run."""
     import torch
 
     from repro_torch.core.gather_engine import gather_engine_cache_stats
@@ -1979,7 +1999,8 @@ def generation_path(device, smi):
     from repro_torch.models import Runtime
 
     _phase(f"11. generation: serve --arch llama3-8b at full width and depth, "
-           f"the cuda embedding, prefill vs decode, every family ({smi})")
+           f"the cuda embedding, eager and captured, prefill vs decode, "
+           f"every family ({smi})")
     _fresh_caches()
     torch.cuda.reset_peak_memory_stats(device)
     out, served_a = _serve(GEN_ARGV)
@@ -1993,58 +2014,81 @@ def generation_path(device, smi):
                                GEN_STEPS) or not (
             0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
         raise AssertionError(f"generated {tuple(tokens.shape)}")
+    _step_kinds(out["step_seconds"], True, GEN_STEPS)
     print(f"(a) {n_params} parameters ({n_params * 2} B of bf16) drawn in "
           f"{out['init_s']:.2f}s; prefill {out['prefill_ms']:.3f} ms (the "
-          f"process's first), decode {out['decode_ms_per_step']:.3f} ms/step, "
-          f"{out['tok_per_s']:.1f} tok/s batched; peak device memory "
+          f"process's first), decode {out['decode_ms_per_step']:.3f} ms/step "
+          f"(replays of the captured step), {out['tok_per_s']:.1f} tok/s "
+          f"batched; peak device memory "
           f"{torch.cuda.max_memory_allocated(device)} B; launches {served_a}")
 
-    # (a') the index embedding again and (b) the hand-written gather, in
-    # turns (index, cuda, cuda, index), each step's logits recorded: every
-    # run must give the first one's bytes; the first cuda run is (b)
+    # (b) each embedding eager and captured, in turns, each step's logits
+    # recorded: every run must give the first one's bytes and serve's tokens
     runs = []
-    for name, rt in (("index", Runtime()),
-                     ("cuda", Runtime(embed_backend="cuda")),
-                     ("cuda", Runtime(embed_backend="cuda")),
-                     ("index", Runtime())):
-        logits, ids, secs = [], [], []
-        rec = _recording(model, logits, ids, secs)
+    for name, captured in GEN_RUNS:
+        logits, ids, secs = [], [], {}
         _fresh_caches()
         _reset_launches()
-        got = serve.generate(rec, params, batch["tokens"],
-                             max_new_tokens=GEN_STEPS, rt=rt)
+        got = serve.generate(model, params, batch["tokens"],
+                             max_new_tokens=GEN_STEPS,
+                             rt=Runtime(embed_backend=name),
+                             capture=captured,
+                             step_hook=_recorder(logits, ids, secs))
         torch.cuda.synchronize()
-        runs.append(dict(name=name, tokens=got, logits=logits, ids=ids,
+        runs.append(dict(name=name, captured=captured, tokens=got, ids=ids,
                          launches=_read_launches(), secs=secs,
                          engines=gather_engine_cache_stats()))
+        how = f"the {name} embedding, {'captured' if captured else 'eager'}"
+        _step_kinds(secs, captured, GEN_STEPS)
         if not torch.equal(got, tokens):
-            raise AssertionError(f"the {name} embedding generated other "
-                                 f"tokens than serve's")
-        for a, b in zip(runs[0]["logits"], logits):
+            raise AssertionError(f"{how}, generated other tokens than "
+                                 f"serve's")
+        if len(runs) == 1:
+            reference = logits
+        if len(logits) != GEN_STEPS + 1:
+            raise AssertionError(f"{how}: {len(logits)} logits recorded")
+        for a, b in zip(reference, logits):
             _bytes_equal(b, a)
+        del logits
         gathers = runs[-1]["launches"]["coalesced_gather"]
         if gathers != (GEN_STEPS + 1 if name == "cuda" else 0):
-            raise AssertionError(f"the {name} embedding launched the gather "
-                                 f"{gathers} times")
-    served_b, engines = runs[1]["launches"], runs[1]["engines"]
-    if engines["size"] > 32:
-        raise AssertionError(f"the gather engine cache grew to {engines}")
+            raise AssertionError(f"{how}: the gather launched {gathers} "
+                                 f"times")
+    del reference
+    first = next(r for r in runs if r["name"] == "cuda" and r["captured"])
+    served_b, engines = first["launches"], first["engines"]
+    if engines["size"] != 1:
+        raise AssertionError(f"the captured step took the engine cache: "
+                             f"{engines}")
 
-    def times(name):
-        secs = [r["secs"] for r in runs if r["name"] == name]
-        return ("/".join(f"{s[0] * 1e3:.3f}" for s in secs),
-                float(np.median([t for s in secs for t in s[1:]])) * 1e3)
+    def ms(name, captured, kind):
+        return [t * 1e3 for r in runs if r["name"] == name
+                and r["captured"] == captured for t in r["secs"][kind]]
 
-    (pi, di), (pc, dc) = times("index"), times("cuda")
-    print(f"(b) embed_backend='cuda' and 'index' in turns (index, cuda, "
-          f"cuda, index): every step's logits equal bitwise, tokens equal "
-          f"serve's; launches {served_b}; prefill ms index {pi}, cuda {pc}; "
-          f"decode ms a step (median) index {di:.3f}, cuda {dc:.3f}; gather "
-          f"engines cached after the first cuda run {engines} (an LRU of "
-          f"32)")
-    embedding_plan_times(params.tok.embed.detach(), runs[1]["ids"], device)
-    del runs
-    # one warm decode step (index embedding) after a prefill, profiled
+    line = []
+    for name in ("index", "cuda"):
+        eager, replay = ms(name, False, "step"), ms(name, True, "replay")
+        e, c = float(np.median(eager)), float(np.median(replay))
+        line.append(
+            f"{name}: eager {e:.3f}, captured {c:.3f} ({e / c:.2f}x); "
+            f"prefill ms " + "/".join(f"{t:.3f}" for t in ms(
+                name, False, "prefill") + ms(name, True, "prefill"))
+            + "; captured runs' first step (eager, the warm-up) ms "
+            + "/".join(f"{t:.3f}" for t in ms(name, True, "step"))
+            + ", capture ms "
+            + "/".join(f"{t:.3f}" for t in ms(name, True, "capture")))
+    print(f"(b) the index and cuda embeddings, eager and captured, in turns "
+          f"({', '.join(f'{n} ' + ('captured' if c else 'eager') for n, c in GEN_RUNS)}): "
+          f"every step's logits equal the first run's bitwise, tokens equal "
+          f"serve's, the gather launched {GEN_STEPS + 1} times a cuda run "
+          f"(launches of the first captured cuda run {served_b}); gather "
+          f"engines cached after it {engines} (the prefill's only: the "
+          f"step plans its ids in the step); decode ms a step (median, "
+          f"host clock, synchronised) " + "; ".join(line))
+    embedding_plan_times(params.tok.embed.detach(), first["ids"], device)
+    del runs, first
+    # one warm eager decode step (index embedding) after a prefill, and
+    # one replay of the captured step (cuda embedding), profiled
     B, S = batch["tokens"].shape
     with torch.inference_mode():
         cache = model.init_cache(B, S + 1, Runtime(), device=device)
@@ -2053,8 +2097,25 @@ def generation_path(device, smi):
         last = tokens[:, :1]
         _profile_busy(lambda: model.decode_step(params, last, cache,
                                                 Runtime()),
-                      f"one decode step ({B} x 1 tokens, {S} cached)")
+                      f"one eager decode step ({B} x 1 tokens, {S} cached)")
     del cache
+
+    def profile_one_replay(kind, toks, run):
+        if kind != "replay" or profiled:
+            return run()
+        profiled.append(run)
+        box = []
+        _profile_busy(lambda: box.append(run()),
+                      f"one replay of the captured step, cuda embedding "
+                      f"({B} x 1 tokens, {S + 1} cached)")
+        return box[0]
+
+    profiled = []
+    serve.generate(model, params, batch["tokens"], max_new_tokens=3,
+                   rt=Runtime(embed_backend="cuda"),
+                   step_hook=profile_one_replay)
+    torch.cuda.synchronize()
+    _fresh_caches()
 
     # (c) prefill (one multi-token decode_step) against one-token steps,
     # at every prefix of 16 tokens, both through a float32 cache
@@ -2095,13 +2156,15 @@ def generation_path(device, smi):
 
 def embedding_plan_times(table, streams, device):
     """(b)'s embedding, step by step, on fresh caches: the host ms of
-    planning each step's ids (engine, schedule, plan; synchronised) and the
-    kernel's ms (CUDA events); at the prefill stream (8 x 512 ids, 8 KB
+    planning each step's ids eagerly (engine, schedule, plan; synchronised)
+    and the kernel's ms (CUDA events); the device ms of the captured step's
+    embedding, planned in the step; at the prefill stream (8 x 512 ids, 8 KB
     rows) the kernel beside its byte bound, its plain version and
     `torch.index_select`."""
     import torch
 
     from repro_torch.core.gather_engine import get_gather_engine
+    from repro_torch.core.indirect_stream import gather_in_step
     from repro_torch.kernels.coalesced_gather import coalesced_gather_cuda, \
         coalesced_gather_plain
 
@@ -2119,11 +2182,27 @@ def embedding_plan_times(table, streams, device):
         kw = dict(window=256, block_rows=8, plan=plan, n_out=eng.n_indices)
         kernel_ms.append(_time_ms(lambda: coalesced_gather_cuda(
             table, None, **kw), iters=10))
-    print(f"  embedding per step (host ms to plan the ids; kernel ms): "
-          f"prefill {plan_ms[0]:.3f}; {kernel_ms[0]:.4f}; decode steps "
+    print(f"  embedding per step, eager (host ms to plan the ids; kernel "
+          f"ms): prefill {plan_ms[0]:.3f}; {kernel_ms[0]:.4f}; decode steps "
           f"median {float(np.median(plan_ms[1:])):.3f}; "
           f"{float(np.median(kernel_ms[1:])):.4f} (range "
           f"{min(plan_ms[1:]):.3f}-{max(plan_ms[1:]):.3f} ms to plan)")
+    # the captured step's embedding: the ids planned in the step, on the
+    # card (schedule at max_warps = window, plan, kernel), no host copy
+    _fresh_caches()
+    step_ms = []
+    for ids in streams[1:]:
+        flat = ids.reshape(-1)
+        _bytes_equal(gather_in_step(table, flat, window=256, block_rows=8,
+                                    backend="cuda"), table[flat.long()])
+        step_ms.append(_time_ms(lambda: gather_in_step(
+            table, flat, window=256, block_rows=8, backend="cuda"),
+            iters=10))
+    print(f"  embedding per decode step, planned in the step "
+          f"(`gather_in_step`, the captured step's; device ms of schedule, "
+          f"plan and kernel, CUDA events): median "
+          f"{float(np.median(step_ms)):.4f} (range {min(step_ms):.4f}-"
+          f"{max(step_ms):.4f}); equal to table[ids] bitwise")
     ids = streams[0].reshape(-1)
     _fresh_caches()
     eng = get_gather_engine(tuple(table.shape), ids, window=256,
@@ -2191,11 +2270,59 @@ def _prefill_against_forward_f32(cfg, params, batch):
     return _max_err(dec[:, 0], fwd[:, -1], FLOAT32_TOL)
 
 
+FAMILY_TOKENS = 4  # (d)'s generate: the warm-up, a capture, 3 replays
+
+
+def _captured_against_eager(name, model, params, batch, rt):
+    """(d): `generate` of FAMILY_TOKENS tokens with the step captured
+    against the same step eager, on the card: the kinds of step each ran,
+    tokens and every step's logits (bitwise, or FAMILY_TOL where they are
+    not; the comparison stops where the tokens part). Returns the line to
+    print."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    got = {}
+    for captured in (False, True):
+        logits, ids, secs = [], [], {}
+        toks = serve.generate(model, params, batch["tokens"],
+                              max_new_tokens=FAMILY_TOKENS, rt=rt,
+                              extras_batch=batch, capture=captured,
+                              step_hook=_recorder(logits, ids, secs))
+        _step_kinds(secs, captured, FAMILY_TOKENS)
+        _finite(f"{name}, captured={captured}", *logits)
+        got[captured] = (toks, logits, secs)
+    (te, le, se), (tc, lc, sc) = got[False], got[True]
+    bitwise, err = True, 0.0
+    for i, (a, b) in enumerate(zip(le, lc)):
+        if not torch.equal(a, b):
+            bitwise = False
+            err = max(err, _max_err(b, a, FAMILY_TOL))
+        if i < FAMILY_TOKENS and not torch.equal(te[:, i], tc[:, i]):
+            if bitwise:
+                raise AssertionError(f"{name}: captured tokens differ from "
+                                     f"eager's with bitwise logits")
+            return (f"captured against eager: tokens part at step {i} "
+                    f"after logits within {err:.3e} (tolerance "
+                    f"{FAMILY_TOL} + {FAMILY_TOL}*|ref|)")
+    e = float(np.median(se["step"])) * 1e3
+    c = float(np.median(sc["replay"])) * 1e3
+    return (f"captured against eager, {FAMILY_TOKENS} tokens: tokens equal, "
+            f"every step's logits "
+            + ("equal bitwise" if bitwise else
+               f"within {err:.3e} (tolerance {FAMILY_TOL} + "
+               f"{FAMILY_TOL}*|ref|)")
+            + f"; a step {e:.3f} ms eager, {c:.3f} ms a replay (median); "
+            f"capture {sc['capture'][0] * 1e3:.1f} ms")
+
+
 def families(device):
     """(d): every other family at full width, depth cut to one repeating
     unit: logits finite, the prefill through `decode_step` (the cache)
-    against `forward` (none) at the last position, and `dispatch_report` on
-    the card for the MoE families."""
+    against `forward` (none) at the last position, `generate` with the step
+    captured against eager, and `dispatch_report` on the card for the MoE
+    families."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2254,6 +2381,7 @@ def families(device):
               f"{init_s:.2f}s; forward + prefill + one step {run_s:.2f}s; "
               f"prefill vs forward max abs err {check}; peak device memory "
               f"{torch.cuda.max_memory_allocated(device)} B")
+        print(f"    {_captured_against_eager(name, model, params, batch, rt)}")
         if cfg.moe is not None:
             layer = params.units.pos0[0]
             with torch.inference_mode():
@@ -3372,8 +3500,8 @@ def main():
     served["10 serve --mesh (--chaos)"], checks["10 sharded engine and cg"] \
         = timed(10, sharded_path, device, smi)
     served["11 serve --arch llama3-8b"], served[
-        "11 generate, embed_backend cuda"] = timed(11, generation_path,
-                                                   device, smi)
+        "11 generate, embed_backend cuda, captured"] = timed(
+            11, generation_path, device, smi)
     served["12 train (no kernel on this path)"] = timed(
         12, training_path, device, smi)
     served["13 train on a process mesh (no kernel on this path)"] = timed(

@@ -466,7 +466,7 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     instead (``t`` on ``meta``; ``sharding`` None without a mesh)."""
     from repro_torch.sharding import dtensor
     from repro_torch.sharding.rules import batch_pspecs, cache_pspecs, \
-        cache_stacked, cache_tensors, param_pspecs, tensor_pspecs, \
+        cache_stacked, param_pspecs, tensor_pspecs, \
         to_shardings, zero1_tensor_pspecs
     from repro_torch.train.steps import make_prefill_step, \
         make_serve_step, make_train_step
@@ -503,9 +503,8 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
                                        dtype=torch.int32, device="meta")}
         cache = _fill_cache_stubs(cfg, cache_shapes(
             cfg, cell.global_batch, cell.seq_len, rt), cell)
-        cache_t = cache_tensors(cache)
         c_sh = None if mesh is None else shardings(
-            cache_pspecs(cfg, cache, mesh), cache_t,
+            cache_pspecs(cfg, cache, mesh), cache,
             cache_stacked(cfg, cache))
     else:
         batch = input_specs(cfg, cell.global_batch, cell.seq_len)
@@ -543,8 +542,7 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
                 (placed, opt, batch)
         if cell.kind == "prefill":
             return make_prefill_step(model, rt), (placed, batch)
-        placed_cache = _place_tree(cache_t, make, c_sh)
-        placed_cache["index"] = cache["index"]
+        placed_cache = _place_tree(cache, make, c_sh)
         return make_serve_step(model, rt), \
             (placed, batch["tokens"], placed_cache)
 

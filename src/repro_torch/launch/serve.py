@@ -43,8 +43,10 @@ store.
 512 --tokens 32` generates with the model stack (`models.build_model`,
 seeded random weights drawn on the card): `generate` prefills the prompts
 through one multi-token `decode_step`, then decodes ``--tokens`` greedy
-steps, and the report gives ``generated (B, T) in … s (… tok/s batched)``
-with the prefill's ms and the decode's ms per step. ``--reduced`` serves the
+steps, the one-token step captured as one CUDA graph on the card and
+replayed a token (eager on the CPU), and the report gives ``generated (B,
+T) in … s (… tok/s batched)`` with the prefill's ms and the decode's ms per
+step. ``--reduced`` serves the
 config's CPU-sized variant, e.g. ``--arch tinyllama-1.1b --reduced --tokens
 8 --device cpu``.
 
@@ -59,7 +61,6 @@ where there is none.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from typing import Dict
 
@@ -559,19 +560,110 @@ def serve_paged(args) -> Dict[str, object]:
     }
 
 
-def generate(model, params, prompt, *, max_new_tokens: int, rt,
-             extras_batch=None, greedy: bool = True, generator=None):
-    """Prefill the prompt (one multi-token `decode_step`), then decode
-    `max_new_tokens` steps, each appending the last token, as `repro`'s
-    `generate` does. `params` is the family module `model.init` (or
-    `core.interop.model_params_from_numpy`) returned; the prompt (B, S)
-    moves to its device. Greedy takes the argmax; otherwise each token is
-    drawn from the softmax with `generator` (on the params' device).
-    Returns the (B, max_new_tokens) int32 tokens."""
-    import torch
+def _copy_back(cache, new, where="cache") -> None:
+    """Every tensor of `new` (the cache a step returned) that is not the
+    one `cache` holds there copied into `cache`'s own: the advanced index
+    and the recurrent state (Mamba2, mLSTM, sLSTM) land in the buffers the
+    next step, and a captured graph, read. The KV caches are written in
+    place and skipped."""
+    if torch.is_tensor(new):
+        if new is not cache:
+            if new.shape != cache.shape or new.dtype != cache.dtype:
+                raise ValueError(
+                    f"{where}: the step returned {new.dtype} "
+                    f"{tuple(new.shape)} for a {cache.dtype} "
+                    f"{tuple(cache.shape)} buffer")
+            cache.copy_(new)
+    elif isinstance(new, dict):
+        for k, v in new.items():
+            _copy_back(cache[k], v, f"{where}[{k!r}]")
+    elif isinstance(new, (list, tuple)):
+        for i, v in enumerate(new):
+            _copy_back(cache[i], v, f"{where}[{i}]")
 
+
+def one_token_step(model, params, tokens, cache, rt):
+    """The one-token step `generate` runs after the prefill, over static
+    buffers: `tokens` (B, 1) int32 and `cache`, whose index and recurrent
+    state each call advances in place (`_copy_back`). The gathers plan in
+    the step (`core.indirect_stream.in_step`, `repro`'s jitted step).
+    Returns a function of no arguments that runs one step and returns its
+    logits (B, 1, V)."""
+    from repro_torch.core.indirect_stream import in_step
+
+    def step():
+        with in_step():
+            logits, new = model.decode_step(params, tokens, cache, rt)
+        _copy_back(cache, new)
+        return logits
+
+    return step
+
+
+class CapturedStep:
+    """A step function (`one_token_step`) captured as one CUDA graph on
+    `stream` (where its warm-up ran), for `name`'s model. Calling it replays
+    the graph and returns its static logits; the kernel launches it holds
+    are added to the wrappers' counts on each replay
+    (`kernels.ops.CapturedLaunches`). A capture that fails raises: there is
+    no eager fallback."""
+
+    def __init__(self, step, stream, name: str):
+        from repro_torch.kernels.ops import CapturedLaunches
+
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with CapturedLaunches() as launches, \
+                    torch.cuda.graph(self.graph, stream=stream):
+                self.logits = step()
+        except Exception as exc:
+            raise RuntimeError(
+                f"{name}: generate could not capture the decode step into a "
+                f"CUDA graph ({exc})") from exc
+        self.launches = launches
+
+    def __call__(self):
+        self.graph.replay()
+        self.launches.replayed()
+        return self.logits
+
+
+def generate(model, params, prompt, *, max_new_tokens: int, rt,
+             extras_batch=None, greedy: bool = True, generator=None,
+             capture=None, step_hook=None):
+    """Prefill the prompt (one multi-token `decode_step`, eager), then decode
+    `max_new_tokens` steps, each appending the last token, as `repro`'s
+    `generate` does (which jits the step, not the prefill). `params` is the
+    family module `model.init` (or `core.interop.model_params_from_numpy`)
+    returned; the prompt (B, S) moves to its device. Greedy takes the
+    argmax; otherwise each token is drawn from the softmax with `generator`
+    (on the params' device); both outside the step.
+
+    The step is `one_token_step` over a static token buffer and the cache
+    (sized ``S + max_new_tokens``, which bounds the cache index the step
+    advances on the device). On the card (``capture`` None or True) the
+    first step runs eagerly on a side stream, the capture's warm-up, then
+    the step is captured once as a CUDA graph on that stream
+    (`CapturedStep`) and each later token is one replay; a capture that
+    fails raises. ``capture=False`` runs every step eagerly, as the CPU
+    does. ``step_hook(kind, ids, run)``, when given, is called for each
+    step instead of ``run()`` and returns what ``run()`` returns: kind
+    ``"prefill"``, ``"step"`` (eager), ``"capture"`` (``run()`` returns the
+    `CapturedStep`) or ``"replay"``, the step's input ids, and the step,
+    which returns its logits (B, S, V) (on a replay the graph's static
+    buffer: clone them to keep them).
+    Returns the (B, max_new_tokens) int32 tokens."""
     B, S = prompt.shape
     device = params.device
+    if capture is None:
+        capture = device.type == "cuda"
+    if capture and device.type != "cuda":
+        raise ValueError(f"capture=True needs the card; the params lie on "
+                         f"{device}")
+
+    def run(kind, ids, fn):
+        return fn() if step_hook is None else step_hook(kind, ids, fn)
+
     prompt = prompt.to(device=device, dtype=torch.int32)
     with torch.inference_mode():
         cache = model.init_cache(B, S + max_new_tokens, rt, device=device)
@@ -580,12 +672,36 @@ def generate(model, params, prompt, *, max_new_tokens: int, rt,
                 params, extras_batch["enc_input"], rt)
         if model.cfg.family == "vlm":
             cache["image_embeds"] = extras_batch["image_embeds"]
-        logits, cache = model.decode_step(params, prompt, cache, rt)
-        outs = []
+        out = {}
+
+        def prefill():
+            logits, out["cache"] = model.decode_step(params, prompt, cache,
+                                                     rt)
+            return logits
+
+        logits = run("prefill", prompt, prefill)
+        cache = out.pop("cache")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        for _ in range(max_new_tokens):
+        tokens = tok.clone()
+        step = one_token_step(model, params, tokens, cache, rt)
+        side = torch.cuda.Stream(device) if capture else None
+        graph = None
+        outs = []
+        for i in range(max_new_tokens):
             outs.append(tok)
-            logits, cache = model.decode_step(params, tok, cache, rt)
+            tokens.copy_(tok)
+            if graph is not None:
+                logits = run("replay", tokens, graph)
+            elif side is not None:
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    logits = run("step", tokens, step)
+                torch.cuda.current_stream(device).wait_stream(side)
+                if i + 1 < max_new_tokens:
+                    graph = run("capture", tokens, lambda: CapturedStep(
+                        step, side, model.cfg.name))
+            else:
+                logits = run("step", tokens, step)
             if greedy:
                 tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             else:
@@ -600,8 +716,9 @@ def serve_generate(args) -> Dict[str, object]:
     (``--seed``) and prompts (``--seed`` + 1) on the device, `generate` with
     `repro`'s default `Runtime()`, and the report line of `repro`'s serve
     plus the prefill's ms and the decode's ms per step (host clock,
-    synchronised after each step). Returns the model, its params, the
-    batch, the tokens and the times."""
+    synchronised after each step; on the card the replays of the captured
+    step). Returns the model, its params, the batch, the tokens and the
+    times (``step_seconds``: each step's, by `generate`'s kind)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -628,34 +745,42 @@ def serve_generate(args) -> Dict[str, object]:
           f"prompt={args.prompt_len} tokens={args.tokens} device={dev}; "
           f"weights and prompts drawn in {init_s:.2f}s")
 
-    step_s = []
-    step = model.decode_step
+    secs = {}  # kind -> host seconds of each step of that kind
 
-    def timed_step(p, tokens, cache, rt_):
+    def timed(kind, ids, run):
         t = time.perf_counter()
-        out = step(p, tokens, cache, rt_)
+        out = run()
         _sync(dev)
-        step_s.append(time.perf_counter() - t)
+        secs.setdefault(kind, []).append(time.perf_counter() - t)
         return out
 
-    timed = dataclasses.replace(model, decode_step=timed_step)
     t0 = time.perf_counter()
-    out = generate(timed, params, batch["tokens"], max_new_tokens=args.tokens,
-                   rt=rt, extras_batch=batch)
+    out = generate(model, params, batch["tokens"],
+                   max_new_tokens=args.tokens, rt=rt, extras_batch=batch,
+                   step_hook=timed)
     _sync(dev)
     dt = time.perf_counter() - t0
     total = args.batch * args.tokens
-    prefill_ms = step_s[0] * 1e3
-    decode_ms = float(np.mean(step_s[1:])) * 1e3 if len(step_s) > 1 else 0.0
+    prefill_ms = secs["prefill"][0] * 1e3
+    # the decode's ms a step: the replays' on the card (the first step, the
+    # capture's eager warm-up, and the capture are printed apart), every
+    # eager step's on the CPU
+    decode = secs.get("replay") or secs.get("step") or []
+    decode_ms = float(np.mean(decode)) * 1e3 if decode else 0.0
+    how = "captured, replayed" if "replay" in secs else "eager"
+    extra = "".join(
+        f", {kind} {secs[kind][0] * 1e3:.3f} ms"
+        for kind in ("step", "capture") if "replay" in secs and kind in secs)
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({total / dt:.1f} tok/s batched); prefill {prefill_ms:.3f} ms, "
-          f"decode {decode_ms:.3f} ms/step over {len(step_s) - 1} steps")
+          f"decode {decode_ms:.3f} ms/step over {len(decode)} steps "
+          f"({how}{extra})")
     print(out[0][:16].tolist())
     return {
         "config": cfg, "model": model, "params": params, "batch": batch,
         "rt": rt, "tokens": out, "seconds": dt, "tok_per_s": total / dt,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-        "init_s": init_s,
+        "init_s": init_s, "step_seconds": secs,
     }
 
 

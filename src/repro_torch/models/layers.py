@@ -23,6 +23,7 @@ from repro_torch.core.indirect_stream import coalesced_gather
 from repro_torch.sharding.dtensor import einsum as sharded_einsum
 from repro_torch.sharding.dtensor import fit_merged, fit_split, \
     is_dtensor, keep_only, shards_inner_dims, vocab_lookup
+from repro_torch.sharding.dtensor import index_copy_ as dtensor_index_copy_
 
 # A tensor drawn at once holds at most this many elements; larger ones (the
 # stacked experts of a full-width MoE layer) are drawn slice by slice along
@@ -277,12 +278,24 @@ def causal_mask(sq: int, sk: int, offset: int = 0, device=None) -> torch.Tensor:
     return (kpos <= qpos)[None, None]
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int):
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, index):
     """Write `new` (B, Sq, ...) into `cache` at sequence offset `index`, in
-    place. `jax.lax.dynamic_update_slice_in_dim` would clamp an offset that
-    runs past the cache; the callers size the cache so that never happens,
-    so here it raises."""
+    place. A Python int: `jax.lax.dynamic_update_slice_in_dim` would clamp
+    an offset that runs past the cache; the callers size the cache so that
+    never happens, so here it raises. A tensor (a decode cache's 0-d int32
+    ``index`` on its device, `repro`'s leaf): rows ``index + arange(Sq)``
+    through ``index_copy_``, with no read of the index on the host, so the
+    caller that counts the steps keeps them inside the cache
+    (`launch.serve.generate` sizes it for its steps). On a DTensor cache
+    each rank writes its own shard (`sharding.dtensor.index_copy_`)."""
     sq, s_max = new.shape[1], cache.shape[1]
+    if torch.is_tensor(index):
+        rows = index.to(torch.int64) + torch.arange(sq, device=index.device)
+        if is_dtensor(cache):
+            dtensor_index_copy_(cache, 1, rows, new)
+        else:
+            cache.index_copy_(1, rows, new.to(cache.dtype))
+        return cache
     if not 0 <= index <= s_max - sq:
         raise ValueError(f"cache write of {sq} positions at {index} runs "
                          f"past the cache's {s_max}")
@@ -290,8 +303,9 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int):
     return cache
 
 
-def _decode_mask(index: int, sq: int, s_max: int, device) -> torch.Tensor:
-    """(1, 1, sq, s_max): causal within the chunk and the full history."""
+def _decode_mask(index, sq: int, s_max: int, device) -> torch.Tensor:
+    """(1, 1, sq, s_max): causal within the chunk and the full history;
+    `index` a Python int or a 0-d tensor."""
     kpos = torch.arange(s_max, device=device)[None, None, None, :]
     qpos = (index + torch.arange(sq, device=device))[None, None, :, None]
     return kpos <= qpos
@@ -309,7 +323,7 @@ def attention_apply(
     use_rope: bool = True,
     mask: Optional[torch.Tensor] = None,
     kv_cache: Optional[tuple] = None,  # (k, v): (B, S_max, Hkv, hd)
-    cache_index: Optional[int] = None,  # write offset
+    cache_index=None,  # write offset: an int or a 0-d tensor
     kv_override: Optional[tuple] = None,  # cross-attn: precomputed (k, v)
 ):
     """Returns (out, new_kv_cache). Modes:
@@ -388,7 +402,7 @@ def mla_apply(
     rope_theta: float,
     mask: Optional[torch.Tensor] = None,
     latent_cache: Optional[tuple] = None,  # (c_kv (B,S,r), k_rope (B,S,dr))
-    cache_index: Optional[int] = None,
+    cache_index=None,  # write offset: an int or a 0-d tensor
 ):
     """DeepSeek-V2 MLA. The decode cache holds only the compressed latent
     (kv_lora_rank) + shared rope key, written in place."""

@@ -22,7 +22,12 @@ weight GEMMs, `aten.mm`/`aten.addmm`) and recomputes the rest, as
 
 Caches mirror the parameters: per-layer (k, v) tensors in lists, written in
 place by each decode step (as `models.paged_kv` does; `repro` returns a new
-cache), and ``cache["index"]`` is a Python int.
+cache). ``cache["index"]`` is `repro`'s leaf, a 0-d int32 tensor on the
+cache's device: `decode_step` returns it advanced on the device, and the
+positions, the cache writes (``index_copy_`` at ``index + arange(S)``) and
+the decode mask read it there, never on the host, so a step can be
+captured in a CUDA graph (`launch.serve.generate`). Recurrent state (Mamba2,
+mLSTM, sLSTM) is returned new each step, as `repro` returns it.
 """
 from __future__ import annotations
 
@@ -208,8 +213,16 @@ def _cache_dtype(rt: Runtime) -> torch.dtype:
     return torch_dtype(rt.cache_dtype)
 
 
-def _positions(index: int, sq: int, device) -> torch.Tensor:
+def _positions(index, sq: int, device) -> torch.Tensor:
+    """(1, sq) positions ``index + arange(sq)``; `index` an int or a 0-d
+    tensor (the cache's)."""
     return (index + torch.arange(sq, device=device))[None, :]
+
+
+def _cache_index(device) -> torch.Tensor:
+    """A fresh cache's ``index``: `repro`'s ``jnp.zeros((), jnp.int32)`` on
+    the cache's device."""
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 class _Family(ParamDict):
@@ -478,7 +491,7 @@ class DecoderLM(_Family):
                             for _ in range(n_units)]
                 for j in range(unit)
             },
-            "index": 0,
+            "index": _cache_index(device),
         }
 
     def init_cache(self, Bsz, s_max, rt, device=None):
@@ -599,7 +612,7 @@ class Zamba2(_Family):
             "shared_kv": [_empty_kv(cfg, rt, Bsz, s_max, device)
                           for _ in range(n_units)],
             "tail": [state() for _ in range(n_tail)] if n_tail else None,
-            "index": 0,
+            "index": _cache_index(device),
         }
 
     def init_cache(self, Bsz, s_max, rt, device=None):
@@ -706,7 +719,7 @@ class XLSTM(_Family):
             "slstm": [X.slstm_init_state(Bsz, cfg.d_model, cfg.n_heads,
                                          device=device)
                       for _ in range(n_units)],
-            "index": 0,
+            "index": _cache_index(device),
         }
 
     def init_cache(self, Bsz, s_max, rt, device=None):
@@ -862,7 +875,7 @@ class Whisper(_Family):
             "self_kv": [_empty_kv(cfg, rt, Bsz, s_max, device)
                         for _ in range(cfg.n_layers)],
             "enc_out": None,  # filled by prefill (encoder run)
-            "index": 0,
+            "index": _cache_index(device),
         }
 
     def init_cache(self, Bsz, s_max, rt, device=None):
@@ -1000,7 +1013,7 @@ class VLM(_Family):
             "self_kv": [[_empty_kv(cfg, rt, Bsz, s_max, device)
                          for _ in range(every - 1)] for _ in range(n_units)],
             "image_embeds": None,  # set by the serving layer
-            "index": 0,
+            "index": _cache_index(device),
         }
 
     def init_cache(self, Bsz, s_max, rt, device=None):

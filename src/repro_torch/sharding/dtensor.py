@@ -34,6 +34,8 @@ port's counterpart of `jax.device_put` onto ``NamedSharding``s.
   * `fit_split(t, dim, parts)`: `dim` left sharded only where its shards
     hold whole parts, before a reshape that splits it (into heads);
     `fit_merged` the same for the gradient of a merge.
+  * `index_copy_(cache, dim, rows, new)`: a decode cache's write at its
+    index, each rank into its own shard (`local_offset`: where it starts).
   * `replication(tree)`: a context in which plain tensors (positions,
     masks, the learning rate) meet DTensors as replicated values, when
     `tree` holds DTensors.
@@ -121,6 +123,20 @@ def local_shape(shape, mesh, placements) -> tuple:
             chunk = -(-n // k)
             out[pl.dim] = max(0, min(chunk, n - chunk * mesh.get_local_rank(i)))
     return tuple(out)
+
+
+def local_offset(shape, mesh, placements, dim: int) -> int:
+    """This rank's first index along `dim` of a tensor of `shape` under
+    `placements`: where `local_shape`'s shard starts (each ``Shard`` mesh
+    dim of `dim`, in mesh order, cuts what the ones before it left)."""
+    n, first = shape[dim], 0
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and pl.dim % len(shape) == dim % len(shape):
+            chunk = -(-n // mesh.size(i))
+            start = min(chunk * mesh.get_local_rank(i), n)
+            first += start
+            n = max(0, min(chunk, n - start))
+    return first
 
 
 def mesh_device(mesh) -> torch.device:
@@ -507,6 +523,43 @@ def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
     return redistribute(t, [Replicate() if p.is_partial() else p
                             for p in ref.placements])
+
+
+def index_copy_(cache: torch.Tensor, dim: int, rows: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """``cache.index_copy_(dim, rows, new)`` on a DTensor `cache` (a decode
+    cache's write at its index), in place, which DTensor has no rule for:
+    `new` is laid out as `cache` but whole along `dim`, and each rank
+    writes into its own shard. Where `dim` is not sharded every rank
+    copies all `rows`; where it is (an MLA latent's sequence, on 'model')
+    each rank keeps its shard's rows that `rows` names and takes the rest
+    from `new` (a select over the shard: no row of `rows` falls twice)."""
+    from torch.distributed.tensor import Replicate
+
+    dim %= cache.ndim
+    along = [pl.is_shard() and pl.dim % cache.ndim == dim
+             for pl in cache.placements]
+    new = new.to(cache.dtype)
+    if not is_dtensor(new):
+        new = replicated_value(new, cache.device_mesh)
+    if is_dtensor(rows):
+        rows = replicate(rows).to_local()
+    src = redistribute(new, [
+        Replicate() if a or pl.is_partial() else pl
+        for a, pl in zip(along, cache.placements)]).to_local()
+    local = cache.to_local()
+    if not any(along):
+        local.index_copy_(dim, rows, src)
+        return cache
+    first = local_offset(cache.shape, cache.device_mesh, cache.placements,
+                         dim)
+    pos = first + torch.arange(local.shape[dim], device=local.device)
+    hit = pos[:, None] == rows[None, :]  # (local rows, rows)
+    pick = src.index_select(dim, hit.to(torch.int32).argmax(1))
+    keep = hit.any(1).reshape([-1 if d == dim else 1
+                               for d in range(local.ndim)])
+    local.copy_(torch.where(keep, pick, local))
+    return cache
 
 
 def replicated(fn: Callable, *args):

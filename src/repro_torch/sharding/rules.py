@@ -229,16 +229,10 @@ def cache_stacked(cfg, cache) -> Dict[tuple, int]:
     return dict(_CACHE_STACKED[cfg.family])
 
 
-def cache_tensors(cache) -> dict:
-    """A decode cache without its non-tensor entries (the int ``index``)."""
-    return {k: v for k, v in cache.items() if k != "index"}
-
-
 def cache_pspecs(cfg, cache, mesh) -> Dict[str, Spec]:
     """{keystr: spec} of a port decode cache (`Model.init_cache`, on any
     device including ``meta``), `repro`'s `cache_pspecs` leaf for leaf (the
-    int ``index``, a 0-d leaf with spec ``()`` in `repro`, is not a tensor
-    here). KV caches shard batch over DP and one of {kv_heads, head_dim,
+    0-d ``index`` replicated, ``()``). KV caches shard batch over DP and one of {kv_heads, head_dim,
     seq} over model (first that divides); SSM/xLSTM states shard their wide
     feature dim over model."""
     sizes = axis_sizes(mesh)
@@ -287,7 +281,16 @@ def cache_pspecs(cfg, cache, mesh) -> Dict[str, Spec]:
         return ()
 
     return {key: spec_of(key, shape) for key, shape in
-            _leaf_shapes(cache_tensors(cache), cache_stacked(cfg, cache))}
+            _leaf_shapes(cache, cache_stacked(cfg, cache))}
+
+
+def _axes(spec) -> set:
+    """The mesh axes a spec names."""
+    used = set()
+    for e in spec:
+        if e is not None:
+            used.update((e,) if isinstance(e, str) else tuple(e))
+    return used
 
 
 def _fold_dp(shape, spec, dp: tuple, dp_size: int) -> Spec:
@@ -295,17 +298,24 @@ def _fold_dp(shape, spec, dp: tuple, dp_size: int) -> Spec:
     folded onto the first still-unsharded dim of `shape` that they divide,
     unless a dim already names one of them (a 2-D expert shard)."""
     entries = list(spec) + [None] * (len(shape) - len(spec))
-    used = set()
-    for e in entries:
-        if e is None:
-            continue
-        used.update((e,) if isinstance(e, str) else tuple(e))
-    if used & set(dp):  # DP axes already consumed (e.g. 2D expert shard)
+    if _axes(entries) & set(dp):  # DP axes already consumed (2-D experts)
         return _spec(entries)
     for dim in range(len(shape)):
         if entries[dim] is None and shape[dim] % dp_size == 0 \
                 and shape[dim] >= dp_size:
             entries[dim] = dp
+            break
+    return _spec(entries)
+
+
+def _fold_onto_model(shape, spec, dp: tuple, size: int) -> Spec:
+    """`spec` with the DP axes folded jointly with 'model' onto the first
+    dim it shards on 'model' alone, as ``(*dp, 'model')`` (DP major), where
+    `size` (dp x model) divides that dim; else `spec` as it is."""
+    entries = list(spec)
+    for dim, e in enumerate(entries):
+        if e == "model" and shape[dim] % size == 0:
+            entries[dim] = tuple(dp) + ("model",)
             break
     return _spec(entries)
 
@@ -327,9 +337,13 @@ def zero1_tensor_pspecs(params, mesh, *, expert_2d: bool = False
     stacked layer axis, the port, which holds one tensor a layer, folds
     them onto the first still-unsharded dim of each layer's tensor that
     they divide: the same bytes a device (L/dp layers whole, or L layers
-    each cut dp ways). A layer with no such dim keeps its parameter spec
-    (ROADMAP C27)."""
-    dp, dp_size = _dp(axis_sizes(mesh))
+    each cut dp ways). A layer with no such dim (a bias already on 'model')
+    takes them jointly with 'model' on its model-sharded dim, (*dp,
+    'model'), where dp x model divides it: the same bytes again. Where
+    neither divides (whisper's 1280-wide biases on 2x16x16) it keeps its
+    parameter spec (ROADMAP C27)."""
+    sizes = axis_sizes(mesh)
+    dp, dp_size = _dp(sizes)
     base = param_pspecs(params, mesh, expert_2d=expert_2d)
     named = named_tensors(params)
     out = {}
@@ -342,6 +356,9 @@ def zero1_tensor_pspecs(params, mesh, *, expert_2d: bool = False
             own = tuple(base[leaf.key]) + (None,) * (n + len(layer)
                                                      - len(base[leaf.key]))
             spec = _fold_dp(layer, own[n:], dp, dp_size)
+            if not _axes(spec) & set(dp):
+                spec = _fold_onto_model(layer, spec, dp,
+                                        dp_size * sizes.get("model", 1))
         else:
             spec = spec[n:]
         for name in leaf.names:

@@ -165,32 +165,39 @@ def _local_meta(t, sharding, dtype=None):
 def test_argument_bytes_equal_repros_rules_on_every_cell(mesh_key):
     """(i) All 32 cells on the mesh: the step's inputs as `step_inputs`
     places them, each rank 0's shard (`dtensor.local_shape`, which
-    `dtensor.empty` allocates). The one difference: a decode cell's cache
-    ``index`` is a 4-byte int32 leaf in `repro` and a Python int in the
-    port (ROADMAP C), so `repro` counts 4 bytes more there."""
+    `dtensor.empty` allocates), a decode cell's cache ``index`` the 4-byte
+    int32 leaf it is in `repro`."""
     mesh = FakeMesh(*MESHES[mesh_key])
     got, want = {}, {}
     for name, shape in CELLS:
         cell = dr.SHAPES_BY_NAME[shape]
         _, args = dr.step_inputs(ARCHS[name], cell, dr.default_runtime(cell),
                                  mesh=mesh, device="meta", make=_local_meta)
-        index = 4 if cell.kind == "decode" else 0
-        got[name, shape] = dr.local_bytes(args) + index
+        got[name, shape] = dr.local_bytes(args)
         want[name, shape] = _repro_argument_bytes(name, cell, mesh_key)
     assert got == want
 
 
 # The leaves whose ZeRO-1 fold `repro` puts on the stacked layer axis while
 # the port's per-layer tensor has no free dim the DP axes divide
-# (`_fold_exceptions`): whisper-large-v3's q/k/v and FFN-in
-# biases, (32, 1280) in `repro` with 1280 on 'model', so one (1280,) tensor a
-# layer, already model-sharded (ROADMAP C27).
-FOLD_EXCEPTIONS = {"whisper-large-v3": [
+# (`_fold_exceptions`), by mesh: whisper-large-v3's q/k/v biases, (32,
+# 1280) in `repro` with 1280 on 'model', so one (1280,) tensor a layer,
+# already model-sharded. On 16x16 the port folds 'data' jointly with 'model'
+# onto it (1280 / 256), and its FFN-in biases (5120) on both meshes; on
+# 2x16x16, 512 does not divide 1280 and no per-layer placement holds
+# `repro`'s bytes (ROADMAP C27).
+FOLD_EXCEPTIONS = {"16x16": {}, "2x16x16": {"whisper-large-v3": [
     f"['{stack}']['{block}']['{b}']"
     for stack, blocks in (("dec", ("cross_attn", "self_attn")),
                           ("enc", ("attn",)))
-    for block in blocks for b in ("bk", "bq", "bv")]
-    + ["['dec']['ffn']['b_in']", "['enc']['ffn']['b_in']"]}
+    for block in blocks for b in ("bk", "bq", "bv")]}}
+
+
+def _names_data(spec) -> bool:
+    """Whether a spec shards a dim over 'data' (alone, with 'pod', or
+    jointly with 'model')."""
+    return any(e is not None and "data" in ((e,) if isinstance(e, str)
+                                           else e) for e in spec)
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,7 +214,7 @@ def _fold_exceptions(name, mesh_key) -> list:
     return sorted(
         leaf.key for leaf in leaves(params)
         if any(e is not None for e in folded[leaf.key][:len(leaf.lead)])
-        and not {"data", ("pod", "data")} & set(per_tensor[leaf.names[0]]))
+        and not _names_data(per_tensor[leaf.names[0]]))
 
 
 def _fold_exception_bytes(name, mesh_key, *, zero1, fsdp) -> int:
@@ -222,7 +229,7 @@ def _fold_exception_bytes(name, mesh_key, *, zero1, fsdp) -> int:
     flat = {jax.tree_util.keystr(p): x for p, x in
             jax.tree_util.tree_leaves_with_path(params)}
     extra = 0
-    for key in FOLD_EXCEPTIONS.get(name, []):
+    for key in FOLD_EXCEPTIONS[mesh_key].get(name, []):
         x = flat[key]
         per_layer = x.size // x.shape[0] // sizes["model"]
         held = x.shape[0] * per_layer  # every layer, model-sharded
@@ -238,9 +245,10 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
     ``fsdp=True`` (the parameters too, a train cell's moments on the
     parameters' rules): where `repro` folds the DP axes onto a stacked
     layer axis (smollm-360m, llama3-8b, whisper-large-v3) the port folds
-    them onto each layer's tensor (`rules.zero1_tensor_pspecs`), the same
-    bytes a device, but for the named `FOLD_EXCEPTIONS`, which hold their
-    stated difference more."""
+    them onto each layer's tensor (`rules.zero1_tensor_pspecs`; jointly
+    with 'model' on a bias already model-sharded), the same bytes a device,
+    but for the named `FOLD_EXCEPTIONS` of 2x16x16, which hold their stated
+    difference more."""
     mesh = FakeMesh(*MESHES[mesh_key])
     got, want = {}, {}
     for name, shape in CELLS:
@@ -248,12 +256,11 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
         train = cell.kind == "train"
         flags = {"zero1": mode == "zero1", "fsdp": mode == "fsdp"}
         assert _fold_exceptions(name, mesh_key) == \
-            sorted(FOLD_EXCEPTIONS.get(name, []))
+            sorted(FOLD_EXCEPTIONS[mesh_key].get(name, []))
         _, args = dr.step_inputs(ARCHS[name], cell, dr.default_runtime(cell),
                                  mesh=mesh, device="meta", make=_local_meta,
                                  **flags)
-        index = 4 if cell.kind == "decode" else 0
-        got[name, shape] = dr.local_bytes(args) + index
+        got[name, shape] = dr.local_bytes(args)
         want[name, shape] = _repro_argument_bytes(
             name, cell, mesh_key, **flags) + _fold_exception_bytes(
             name, mesh_key, zero1=flags["zero1"] and train,
@@ -322,10 +329,9 @@ def repro_mini():
 
 @pytest.mark.parametrize("shape", sorted(MINI))
 def test_reduced_cells_match_repros_compiled_bytes(repro_mini, shape):
-    """(ii) Arguments: equal but for a decode cell's int32 cache ``index``
-    (4 bytes, a Python int in the port). Outputs: XLA's
-    ``output_size_in_bytes`` also counts the output tuple's own buffer, 8
-    bytes a leaf (a lone array is no tuple), and the same ``index``; the
+    """(ii) Arguments equal, a decode cell's int32 cache ``index`` among
+    them. Outputs: XLA's ``output_size_in_bytes`` also counts the output
+    tuple's own buffer, 8 bytes a leaf (a lone array is no tuple); the
     port's count is the outputs' tensors alone (ROADMAP C)."""
     want = repro_mini[shape]
     assert want["ok"], want["err"]
@@ -333,11 +339,10 @@ def test_reduced_cells_match_repros_compiled_bytes(repro_mini, shape):
     res = dr.run_cell(get_arch("tinyllama-1.1b").reduced(), cell,
                       save=False, device="cpu", mesh_shape=(2, 4))
     assert res.ok, res.error
-    index = 4 if cell.kind == "decode" else 0
     tuple_table = 8 * want["out_leaves"]
-    assert res.memory["argument_size_in_bytes"] + index == \
+    assert res.memory["argument_size_in_bytes"] == \
         want["memory"]["argument_size_in_bytes"]
-    assert res.memory["output_size_in_bytes"] + index + tuple_table == \
+    assert res.memory["output_size_in_bytes"] + tuple_table == \
         want["memory"]["output_size_in_bytes"]
 
 

@@ -875,6 +875,105 @@ def test_cuda_embedding_model_logits_equal_index_bitwise(cuda):
                                       max_new_tokens=3, rt=Runtime()))
 
 
+def _generate_recorded(model, params, batch, rt, capture, steps=5):
+    """`generate` on the card with every step's kind and logits kept
+    (cloned), and the gather launches it made."""
+    from repro_torch.launch.serve import generate
+
+    kinds, logits = [], []
+
+    def hook(kind, ids, run):
+        out = run()
+        kinds.append(kind)
+        if kind != "capture":
+            logits.append(out.clone())
+        return out
+
+    before = coalesced_gather_cuda.launches
+    toks = generate(model, params, batch["tokens"][:, :8],
+                    max_new_tokens=steps, rt=rt, extras_batch=batch,
+                    capture=capture, step_hook=hook)
+    torch.cuda.synchronize()
+    return toks, logits, kinds, coalesced_gather_cuda.launches - before
+
+
+@pytest.mark.parametrize("name,backend", [
+    ("llama3-8b", "index"), ("llama3-8b", "cuda"),
+    ("deepseek-v2-lite-16b", "cuda"), ("xlstm-1.3b", "index")])
+def test_captured_generate_equals_eager_bitwise(cuda, name, backend):
+    """`generate` replays one captured graph a token after its warm-up step
+    (a dense arch, an MoE arch with MLA, a recurrent arch): tokens equal
+    and every step's logits bitwise equal to the same step run eagerly,
+    the same kernels in the same order; the gather launches once a step
+    either way, replays counted through `CapturedLaunches`."""
+    from repro_torch.models import Runtime
+
+    cfg, model, _, card, _, batch = _model_pair(name, cuda,
+                                                dtype="bfloat16")
+    rt = Runtime(embed_backend=backend)
+    eager = _generate_recorded(model, card, batch, rt, capture=False)
+    captured = _generate_recorded(model, card, batch, rt, capture=None)
+    assert eager[2] == ["prefill"] + ["step"] * 5
+    assert captured[2] == ["prefill", "step", "capture"] + ["replay"] * 4
+    assert torch.equal(captured[0], eager[0])
+    assert len(captured[1]) == len(eager[1]) == 6
+    for got, want in zip(captured[1], eager[1]):
+        assert torch.equal(_bytes(got), _bytes(want))
+    launches = 6 if backend == "cuda" else 0
+    assert captured[3] == eager[3] == launches
+
+
+def test_a_replay_makes_no_host_sync(cuda):
+    """Under ``torch.cuda.set_sync_debug_mode("error")``, from the first
+    replay of the captured step (the cuda embedding planned in the step)
+    to the end of `generate` (the argmax, the next token's copy, the
+    other replays), nothing raises: nothing there waits for the card."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Runtime
+
+    cfg, model, _, card, _, batch = _model_pair("tinyllama-1.1b", cuda,
+                                                dtype="bfloat16")
+    kinds = []
+
+    def hook(kind, ids, run):
+        if kind == "replay":
+            torch.cuda.set_sync_debug_mode("error")
+        kinds.append(kind)
+        return run()
+
+    try:
+        toks = generate(model, card, batch["tokens"], max_new_tokens=4,
+                        rt=Runtime(embed_backend="cuda"), step_hook=hook)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kinds == ["prefill", "step", "capture"] + ["replay"] * 3
+    assert toks.shape == (2, 4)
+
+
+def test_generate_whose_capture_fails_raises(cuda):
+    """A step that synchronises the host cannot be captured: `generate`
+    raises, naming the model, rather than decode eagerly."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Runtime
+
+    cfg, model, _, card, _, batch = _model_pair("smollm-360m", cuda)
+    step = model.decode_step
+
+    def syncing(p, toks, cache, rt):
+        logits, cache = step(p, toks, cache, rt)
+        return logits * float(logits.abs().max() > -1), cache
+
+    with pytest.raises(RuntimeError, match="smollm-360m.*could not capture"):
+        generate(dataclasses.replace(model, decode_step=syncing), card,
+                 batch["tokens"], max_new_tokens=3, rt=Runtime())
+    torch.cuda.synchronize()
+    toks = generate(model, card, batch["tokens"], max_new_tokens=3,
+                    rt=Runtime())
+    assert toks.shape == (2, 3)
+
+
 # ---------------------------------------------------------------------------
 # Training on the card
 # ---------------------------------------------------------------------------

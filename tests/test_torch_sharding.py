@@ -219,13 +219,12 @@ def test_cache_pspecs_equal_repro(name, mesh):
     cfg = ARCHS[name]
     want = _repro_specs(jrules.cache_pspecs(J_ARCHS[name], jcache,
                                             MESHES[mesh]))
-    assert want.pop("['index']") == ()  # an int in the port's cache
+    assert want["['index']"] == ()  # the 0-d int32 leaf, replicated
     got = rules.cache_pspecs(cfg, cache, MESHES[mesh])
     assert list(got) == list(want)
     assert got == want
     stacked = rules.cache_stacked(cfg, cache)
-    per_layer, out_of_layer = _with_prefix(rules.cache_tensors(cache), got,
-                                           stacked)
+    per_layer, out_of_layer = _with_prefix(cache, got, stacked)
     assert per_layer == {k: v for k, v in want.items()
                          if k not in out_of_layer}
     # only an MLA latent's stacked units axis, which `repro`'s KV rule
@@ -269,11 +268,10 @@ def test_cache_specs_divide(name):
     _, cache = _port_shapes(name)
     cfg = ARCHS[name]
     stacked = rules.cache_stacked(cfg, cache)
-    tensors = rules.cache_tensors(cache)
     specs = rules.cache_pspecs(cfg, cache, MESHES["pod2x16x16"])
-    named = named_tensors(tensors)
+    named = named_tensors(cache)
     sizes = {"data": 16, "model": 16, "pod": 2}
-    for leaf in leaves(tensors, stacked):
+    for leaf in leaves(cache, stacked):
         shape = tuple(leaf.lead) + tuple(named[leaf.names[0]].shape)
         for dim, ax in enumerate(specs[leaf.key]):
             if ax is None:
