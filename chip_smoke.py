@@ -155,7 +155,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    index embedding, and the cuda gather has no gradient): (a) `train()` in
    process on tinyllama-1.1b at full width and depth (22 layers, d_model
    2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch 8 x 512 tokens,
-   ``OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)``, 20 steps: each
+   ``OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)``, 20 steps, the
+   update captured (`train`'s default on the card: the first step eager on
+   a side stream, then one CUDA graph replayed a step): each
    step's loss, grad_norm and ms, tokens/s and the model-FLOP share
    ``6 * N_params * tokens/s / 989e12`` (bf16 dense peak) beside the card's
    power limit, peak device memory; gate: every loss and grad_norm finite,
@@ -172,26 +174,43 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    "none": losses within 1e-6 relative, peak memory of each, "full" below
    "none"; (d) a checkpoint/restart drill at full width, one layer, bf16
    (~1.75 GB a checkpoint, under ``build/train-ckpt-<pid>``, removed at
-   the end): `run_with_recovery` with ``ckpt_every=2`` over 8 steps, a
+   the end): `run_with_recovery` with ``ckpt_every=4`` over 8 steps, a
    failure raised once after step 5's update, final parameters against an
    uninterrupted run (bitwise where the step is deterministic on the card,
    else within 1e-6 relative: the case is printed), the seconds of a save
    and a restore, and the port's bf16 checkpoint restored byte for byte;
-   (e) C19: ``embed_backend="cuda"`` (and "auto") under autograd raises
+   then the same drill with the update captured (`train.loop.
+   update_over_buffers`, warmed up and captured as `train` does it with
+   `core.capture`), the restore copying into the captured buffers, its
+   final state against the uninterrupted run; (e) the captured update
+   against the same update eager from one state, in turns: (a)'s training
+   10 steps each (every step's loss, grad norm and lr, then every parameter
+   and moment, bitwise, else within (b)'s tolerances with the reason
+   printed: whether eager repeats itself; the captured losses equal (a)'s
+   first 10), step ms eager and a replay (medians), the first step's and
+   the capture's ms, one replay under torch.profiler, the peak memory of
+   each; then at (a)'s width, 2 layers, 3 steps: microbatches 2 with
+   compression on, and remat "full" and "dots"; (g) C19:
+   ``embed_backend="cuda"`` (and "auto") under autograd raises
    NotImplementedError on the card; "coalesced" and "index" give the same
    loss and embedding gradients within ``1e-6 * max|g|``; (f) every other
-   family at full width with phase 11's cut takes two `make_update_fn`
-   steps with finite losses, gradients and parameters (llama4-maverick is
-   left out: its one unit's parameters, gradients and moments need
-   ~224 GB).
+   family at full width with phase 11's cut takes three updates eager and
+   three replays of its captured update (after the warm-up, the state put
+   back to the seed's) from one state: every step's metrics and the final
+   parameters and moments bitwise (the MoE combine adds in a fixed order,
+   so deepseek's update repeats itself too); losses and parameters finite
+   (llama4-maverick is left out: its one unit's parameters, gradients and
+   moments need ~224 GB).
 13. The sharded training step (no kernel of the three runs here either):
    (a) `train()` on a 1x1 NCCL process mesh (`launch.mesh.
    make_process_mesh`), tinyllama-1.1b at full width and depth with phase
    12 (a)'s seed, batch 8 x 512 and optimizer, 10 steps: every parameter
    and moment a DTensor placed by `sharding.rules.param_pspecs`; each
    step's loss within ``1e-5 * |loss|`` of phase 12 (a)'s at the same step
-   (bitwise printed); step ms (median of steps 1-9), tokens/s and peak
-   device memory beside phase 12 (a)'s, and what DTensor adds to a step;
+   (bitwise printed); step ms (median of steps 1-9; the sharded update
+   stays eager, ROADMAP A4), tokens/s and peak device memory beside phase
+   12 (e)'s eager step and (a)'s replay and peak, and what DTensor adds to
+   a step;
    (b) on the host's CPU, ``python -m torch.distributed.run
    --nproc-per-node 4 -m repro_torch.launch.train --arch tinyllama-1.1b
    --reduced --mesh 2,2 --device cpu --steps 4``: four gloo ranks of the
@@ -1024,7 +1043,7 @@ def paged_step_breakdown(out, device, repeats=3):
 
 def _profile_busy(fn, what):
     """torch.profiler over one call of `fn`: the device's busy share of the
-    wall time and its time by kernel."""
+    wall time and its time by kernel. Returns what `fn` returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,7 +1051,7 @@ def _profile_busy(fn, what):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -1044,7 +1063,7 @@ def _profile_busy(fn, what):
     if not spans:
         print("  device busy share: not measured (the profiler recorded no "
               "device events)")
-        return
+        return out
     busy, end = 0.0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -1058,6 +1077,7 @@ def _profile_busy(fn, what):
           f"of {wall_us / 1e3:.3f} ms wall ({busy / wall_us * 100:.1f}%), "
           f"{len(spans)} device events; by name (ms): " + "; ".join(
               f"{name[:60]} {t / 1e3:.3f}" for name, t in top))
+    return out
 
 
 def _reset_launches():
@@ -2415,14 +2435,23 @@ PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ = 2, 2, 64
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 REMAT_RTOL = 1e-6
-# (d) the recovery drill: one layer, a failure after step 5's update.
-DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 2, 5
+# (d) the recovery drill: one layer, a failure after step 5's update, the
+# restore from step 4's checkpoint (three 1.75 GB saves a drill).
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 4, 5
 DRILL_RTOL = 1e-6
 EMBED_GRAD_RTOL = 1e-6
 # (f) every other family: phase 11's cuts; llama4-maverick's one unit
 # holds 18.7e9 parameters: 224 GB of parameters, gradients and moments.
 TRAIN_FAMILIES = [n for n in FAMILY_CUTS
                   if n not in (TRAIN_ARCH, "llama4-maverick-400b-a17b")]
+# (e) the captured update against the same update eager, from one state:
+# (a)'s model and schedule for 10 steps each (then one replay profiled);
+# the microbatched and compressed update and (c)'s remat modes at (a)'s
+# width, 2 layers, 3 steps; (f)'s families 3 steps (replays after the
+# warm-up).
+CAPTURE_STEPS = 10
+CAPTURE_LAYERS, CAPTURE_SMALL_STEPS = 2, 3
+FAMILY_TRAIN_STEPS = 3
 
 
 def _named_cpu(tree):
@@ -2482,6 +2511,13 @@ def _one_update(model, params, batch, tcfg):
     return float(metrics["loss"]), _named_cpu(opt.mu)
 
 
+def _train_opt():
+    """(a)'s schedule: `repro`'s `test_training_loss_decreases`."""
+    from repro_torch.optim.optimizer import OptConfig
+
+    return OptConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+
+
 def train_full(device, smi):
     """(a): `train()` at full width and depth, then the launcher's main.
     Returns the trained parameters, the model and the data config."""
@@ -2491,7 +2527,6 @@ def train_full(device, smi):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Runtime, build_model
-    from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.loop import TrainConfig, train
 
     cfg = get_arch(TRAIN_ARCH)
@@ -2502,12 +2537,12 @@ def train_full(device, smi):
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats(device)
-    out = train(model, rt=Runtime(),
-                opt_cfg=OptConfig(lr=1e-3, warmup_steps=5,
-                                  total_steps=TRAIN_STEPS),
+    out = train(model, rt=Runtime(), opt_cfg=_train_opt(),
                 tcfg=TrainConfig(total_steps=TRAIN_STEPS, log_every=1),
                 data_cfg=data_cfg, device=device)
     peak = torch.cuda.max_memory_allocated(device)
+    if not out["captured"]:
+        raise AssertionError("(a) train did not capture its update")
     hist = out["history"]
     for h in hist:
         print(f"(a) step {h['step']:2d}: loss {h['loss']:.4f}, grad_norm "
@@ -2531,12 +2566,14 @@ def train_full(device, smi):
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     PHASE12.update(losses=[h["loss"] for h in hist],
                    grad_norms=[h["grad_norm"] for h in hist],
-                   step_ms=float(np.median([h["sec"] for h in
-                                            hist[1:SHARD_STEPS]])) * 1e3,
+                   replay_ms=float(np.median([h["sec"] for h in
+                                              hist[1:SHARD_STEPS]])) * 1e3,
                    peak=peak)
     print(f"(a) {n_params} parameters; loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f} (drop {drop:.4f} > {TRAIN_DROP}); first "
-          f"step {hist[0]['sec'] * 1e3:.1f} ms, later steps median "
+          f"step (eager, the capture's warm-up) {hist[0]['sec'] * 1e3:.1f} "
+          f"ms, capture {out['capture_seconds'] * 1e3:.1f} ms, later steps "
+          f"(replays) median "
           f"{step_s * 1e3:.1f} ms; {tok_s:.0f} tokens/s; model-FLOP share "
           f"6*N*tokens/s / {BF16_FLOP_PER_S:.3g} = "
           f"{6 * n_params * tok_s / BF16_FLOP_PER_S * 100:.2f}% ({smi}); "
@@ -2550,8 +2587,10 @@ def train_full(device, smi):
           flush=True)
     cli = launch_train.main(argv)
     if [h["step"] for h in cli["history"]] != [0, 1] or not all(
-            np.isfinite([h["loss"] for h in cli["history"]])):
-        raise AssertionError(f"launch.train history {cli['history']}")
+            np.isfinite([h["loss"] for h in cli["history"]])) or \
+            not cli["captured"]:
+        raise AssertionError(f"launch.train history {cli['history']}, "
+                             f"captured {cli['captured']}")
     del cli
     _fresh_caches()
     return model, params, data_cfg
@@ -2595,8 +2634,220 @@ def remat_modes(device, model, params, data_cfg):
         raise AssertionError("(c) remat full does not peak below none")
 
 
+def _train_recorded(model, device, capture, steps, data_cfg, rt=None,
+                    tcfg_kw=None):
+    """`train()` of `steps` steps of (a)'s schedule, eager or captured.
+    Returns (train's output, record: each step's kind and (loss,
+    grad_norm, lr) as its history read them from the step's outputs, the
+    seconds of each step by kind and of the capture, the peak device
+    memory over the run above its start)."""
+    import torch
+
+    from repro_torch.models import Runtime
+    from repro_torch.train.loop import TrainConfig, train
+
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = train(model, rt=rt or Runtime(), opt_cfg=_train_opt(),
+                tcfg=TrainConfig(total_steps=steps, log_every=1,
+                                 **(tcfg_kw or {})),
+                data_cfg=data_cfg, device=device, capture=capture)
+    hist = out["history"]
+    rec = {"kinds": [h["kind"] for h in hist],
+           "metrics": [(h["loss"], h["grad_norm"], h["lr"]) for h in hist],
+           "secs": {}, "peak": torch.cuda.max_memory_allocated(device) - base}
+    for h in hist:
+        rec["secs"].setdefault(h["kind"], []).append(h["sec"])
+    if capture:
+        rec["secs"]["capture"] = [out["capture_seconds"]]
+    want = ["step"] * steps if not capture else \
+        ["step"] + ["replay"] * (steps - 1)
+    if rec["kinds"] != want or out["captured"] != capture:
+        raise AssertionError(f"train ran {rec['kinds']}, expected {want}")
+    return out, rec
+
+
+def _profile_one_replay(device, smi, model, data_cfg):
+    """(a)'s update from the seed's state warmed up on a side stream and
+    captured there, as `train` does it; its second step's replay under
+    torch.profiler."""
+    import torch
+
+    from repro_torch.core.capture import CapturedStep, on_side_stream
+    from repro_torch.data.pipeline import TokenPipeline, device_put_batch
+    from repro_torch.models import Runtime
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.train.loop import TrainConfig, copy_batch, \
+        update_over_buffers
+
+    data = TokenPipeline(data_cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    batch = device_put_batch(data.batch_at(0), device)
+    step = update_over_buffers(model, _train_opt(), Runtime(),
+                               TrainConfig(), params, init_opt_state(params),
+                               None, batch)
+    side = torch.cuda.Stream(device)
+    on_side_stream(side, step)
+    graph = CapturedStep(step, side, "(e) the training update")
+    copy_batch(batch, data.batch_at(1))
+    _profile_busy(graph, f"one replay of the training update (step 1; "
+                         f"{smi})")
+    del graph, step, params, batch
+
+
+def _state_against(name, got, want, hold=True):
+    """Every parameter and moment of `got` against `want` (`train`'s
+    outputs, or `{"params", "opt_state"}`): (bitwise, the worst error
+    relative to its tensor's max|ref|); with `hold`, within (b)'s ``1e-4 *
+    max|ref| + 1e-6`` or raise, an element of a bf16 tensor one rounding
+    step of its own further (``eps * |ref|``: (b) held float32 ones)."""
+    import torch
+
+    from repro_torch.optim.tree import named_tensors
+
+    bitwise, worst = True, 0.0
+    for part in ("params", "mu", "nu"):
+        a, b = (named_tensors(o["params"] if part == "params"
+                              else getattr(o["opt_state"], part))
+                for o in (got, want))
+        for n, w in b.items():
+            g = a[n]
+            if torch.equal(g, w):
+                continue
+            bitwise = False
+            eps = torch.finfo(w.dtype).eps if w.dtype != torch.float32 \
+                else 0.0
+            g, w = g.detach().float(), w.detach().float()
+            scale = float(w.abs().max())
+            diff = (g - w).abs()
+            err = float(diff.max())
+            if hold and bool((diff > GRAD_RTOL * scale + GRAD_ATOL
+                              + eps * w.abs()).any()):
+                raise AssertionError(f"{name}: {part} {n} off by {err:.3e} "
+                                     f"(max|ref| {scale:.3e})")
+            worst = max(worst, err / max(scale, 1e-30))
+    return bitwise, worst
+
+
+def _metrics_against(name, got, want):
+    """Each step's (loss, grad_norm, lr) of `got` against `want`: bitwise,
+    else the loss within ``1e-5 * |loss|``, the grad norm within 1e-4
+    relative and the lr equal, or raise. Returns whether bitwise."""
+    if got == want:
+        return True
+    for i, ((lg, ng, rg), (lw, nw, rw)) in enumerate(zip(got, want)):
+        if abs(lg - lw) > LOSS_RTOL * abs(lw) or \
+                abs(ng - nw) > GRAD_RTOL * abs(nw) or rg != rw:
+            raise AssertionError(f"{name}: step {i} (loss, grad_norm, lr) "
+                                 f"{(lg, ng, rg)} against {(lw, nw, rw)}")
+    return False
+
+
+def _why(bitwise, again):
+    """The reason printed beside a comparison held to a tolerance:
+    whether the eager run repeats itself bitwise (`again`)."""
+    if bitwise:
+        return "bitwise"
+    return ("within tolerance: the eager update does not repeat itself "
+            "bitwise either (atomic adds in another order)" if not again
+            else "within tolerance, though the eager update repeats itself "
+            "bitwise")
+
+
+def captured_against_eager(device, smi, model, data_cfg):
+    """(e): from one state (the seed's), 10 steps of (a)'s training eager
+    and 10 captured, in turns in one call: every step's loss, grad norm and
+    lr and, after the steps, every parameter and moment bitwise (else
+    within (b)'s tolerances, the reason printed); step ms eager and a
+    replay's (medians), the capture's and the first step's ms, the peak
+    memory of each, then one replay under torch.profiler. The captured
+    losses are (a)'s first 10 (the same seed and schedule)."""
+    runs = {}
+    for capture in (False, True):
+        _fresh_caches()
+        runs[capture] = _train_recorded(model, device, capture,
+                                        CAPTURE_STEPS, data_cfg)
+    eager, er = runs[False]
+    cr = runs[True][1]
+    for i, (a, b) in enumerate(zip(er["metrics"], cr["metrics"])):
+        print(f"(e) step {i}: eager loss {a[0]!r}, grad_norm {a[1]!r}, lr "
+              f"{a[2]!r}; captured {b[0]!r}, {b[1]!r}, {b[2]!r}")
+    same = _metrics_against("(e)", cr["metrics"], er["metrics"])
+    bitwise, worst = _state_against("(e)", runs[True][0], eager)
+    del runs  # the captured run's state and graph
+    _fresh_caches()
+    again = None
+    if not (same and bitwise):  # does eager repeat itself?
+        twice, _ = _train_recorded(model, device, False, CAPTURE_STEPS,
+                                   data_cfg)
+        again = _state_against("(e) eager twice", twice, eager)[0]
+        del twice
+    want = PHASE12["losses"][:CAPTURE_STEPS]
+    from_a = [m[0] for m in cr["metrics"]] == want
+    e_ms = float(np.median(er["secs"]["step"][1:])) * 1e3
+    r_ms = float(np.median(cr["secs"]["replay"])) * 1e3
+    PHASE12["step_ms"] = e_ms
+    print(f"(e) {TRAIN_ARCH} at full width and depth, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {CAPTURE_STEPS} steps each from the seed's state: "
+          f"losses, grad norms and lr {_why(same, again)}; parameters and "
+          f"moments {_why(bitwise, again)}"
+          + ("" if bitwise else f" (worst {worst:.3e} of max|ref|)")
+          + f"; captured losses equal (a)'s first {CAPTURE_STEPS}: {from_a}")
+    print(f"(e) a step eager {e_ms:.3f} ms, a replay {r_ms:.3f} ms (medians "
+          f"of steps 1-{CAPTURE_STEPS - 1}, the host's batch placement "
+          f"included; {e_ms / r_ms:.3f}x); first step eager {er['secs']['step'][0] * 1e3:.1f}"
+          f" ms, captured run's first (eager on the side stream, the "
+          f"warm-up) {cr['secs']['step'][0] * 1e3:.1f} ms, capture "
+          f"{cr['secs']['capture'][0] * 1e3:.1f} ms; peak device memory "
+          f"above the run's start: eager {er['peak']} B, captured "
+          f"{cr['peak']} B ({smi})")
+    if not from_a:
+        raise AssertionError(f"(e) captured losses {cr['metrics']} against "
+                             f"(a)'s {want}")
+    del eager
+    _fresh_caches()
+    _profile_one_replay(device, smi, model, data_cfg)
+    _fresh_caches()
+
+
+def captured_small(device, smi):
+    """(e) at (a)'s width, 2 layers: the update with microbatches 2 and
+    compression on, and under (c)'s remat modes, captured against the
+    same update eager from one state."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import Runtime, build_model
+
+    cfg = _cut(get_arch(TRAIN_ARCH), CAPTURE_LAYERS)
+    model = build_model(cfg)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    for what, kw in (
+            ("microbatches 2, compression on",
+             dict(tcfg_kw=dict(microbatches=2, grad_compression=True))),
+            ("remat full", dict(rt=Runtime(remat="full"))),
+            ("remat dots", dict(rt=Runtime(remat="dots")))):
+        (eager, er), (capt, cr) = (
+            _train_recorded(model, device, c, CAPTURE_SMALL_STEPS, data_cfg,
+                            **kw) for c in (False, True))
+        same = _metrics_against(f"(e) {what}", cr["metrics"], er["metrics"])
+        bitwise, worst = _state_against(f"(e) {what}", capt, eager)
+        e_ms = float(np.median(er["secs"]["step"][1:])) * 1e3
+        r_ms = float(np.median(cr["secs"]["replay"])) * 1e3
+        print(f"(e) {what}, {CAPTURE_LAYERS} layers, {CAPTURE_SMALL_STEPS} "
+              f"steps: metrics {'bitwise' if same else 'within tolerance'}, "
+              f"parameters and moments "
+              + ("bitwise" if bitwise else f"within {worst:.3e} of max|ref|")
+              + f"; a step {e_ms:.3f} ms eager, {r_ms:.3f} ms a replay; "
+              f"peaks {er['peak']} / {cr['peak']} B ({smi})")
+        del eager, capt
+        _fresh_caches()
+
+
 def card_against_cpu(device):
-    """(b) and (e) on a float32 copy at full width, 2 layers."""
+    """(b) and (g) on a float32 copy at full width, 2 layers."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2653,16 +2904,16 @@ def card_against_cpu(device):
               f"{want_loss:.7f} CPU; first moment worst leaf error "
               f"{worst:.3e} of its max")
 
-    # (e) C19: the gather kernel has no backward
+    # (g) C19: the gather kernel has no backward
     params, batch = card
     for backend in ("cuda", "auto"):
         try:
             lm_loss(model, params, batch, Runtime(embed_backend=backend))
         except NotImplementedError as exc:
-            print(f"(e) embed_backend={backend!r} under autograd on the "
+            print(f"(g) embed_backend={backend!r} under autograd on the "
                   f"card: NotImplementedError ({exc})")
         else:
-            raise AssertionError(f"(e) embed_backend={backend!r} "
+            raise AssertionError(f"(g) embed_backend={backend!r} "
                                  f"differentiated on the card")
     grads = {}
     for backend in ("index", "coalesced"):
@@ -2674,16 +2925,16 @@ def card_against_cpu(device):
     scale = float(gi.abs().max())
     err = float((gc - gi).abs().max())
     if li != lc or err > EMBED_GRAD_RTOL * scale:
-        raise AssertionError(f"(e) coalesced loss {lc} / index {li}, "
+        raise AssertionError(f"(g) coalesced loss {lc} / index {li}, "
                              f"embedding gradient error {err:.3e} of max "
                              f"{scale:.3e}")
-    print(f"(e) embed_backend 'coalesced' and 'index' on the card: losses "
+    print(f"(g) embed_backend 'coalesced' and 'index' on the card: losses "
           f"equal ({li:.7f}); embedding gradients max error {err:.3e} "
           f"(bitwise: {bool(torch.equal(gc, gi))}; tolerance "
           f"{EMBED_GRAD_RTOL:g}*max|g| = {EMBED_GRAD_RTOL * scale:.3e})")
 
 
-def recovery_drill(device):
+def recovery_drill(device, smi):
     """(d): run_with_recovery against an uninterrupted run, full width, one
     layer, bf16; a save and a restore timed; the bf16 checkpoint restored
     byte for byte."""
@@ -2700,16 +2951,17 @@ def recovery_drill(device):
     from repro_torch.train.checkpoint import restore_latest, \
         save_checkpoint
     from repro_torch.train.fault_tolerance import run_with_recovery
-    from repro_torch.train.loop import TrainConfig, make_update_fn
+    from repro_torch.core.capture import CapturedStep, on_side_stream
+    from repro_torch.train.loop import TrainConfig, copy_batch, \
+        make_update_fn, update_over_buffers
 
     cfg = _cut(get_arch(TRAIN_ARCH), 1)
     model = build_model(cfg)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH))
-    update = make_update_fn(
-        model, OptConfig(lr=1e-3, warmup_steps=2, total_steps=DRILL_STEPS),
-        Runtime(), TrainConfig())
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=DRILL_STEPS)
+    update = make_update_fn(model, opt_cfg, Runtime(), TrainConfig())
 
     def init_state():
         params = model.init(torch.Generator(device=device).manual_seed(7),
@@ -2768,6 +3020,60 @@ def recovery_drill(device):
                  "deterministic on the card)" if exact else
                  f"within {worst:.3e} relative of the uninterrupted run's "
                  f"(the step is not bitwise deterministic on the card)"))
+
+        # the same drill with the update captured: the restore copies into
+        # the buffers the graph was captured over, and the replays go on
+        held = init_state()
+        static = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                        dtype=torch.int32, device=device)}
+        buffers_step = update_over_buffers(
+            model, opt_cfg, Runtime(), TrainConfig(), held["params"],
+            held["opt"], None, static)
+        side = torch.cuda.Stream(device)
+        captured = []  # the graph, after the first step (the warm-up)
+        failed.clear()
+
+        def captured_step(state, step):
+            if state is not held:
+                raise AssertionError("(d) the state left the captured "
+                                     "buffers")
+            copy_batch(static, data.batch_at(step))
+            if captured:
+                captured[0]()
+            else:
+                on_side_stream(side, buffers_step)
+                captured.append(CapturedStep(buffers_step, side,
+                                             "(d) the training update"))
+            if step == DRILL_FAIL and not failed:
+                failed.append(step)
+                raise RuntimeError(f"injected failure after step {step}")
+            return state
+
+        t0 = time.perf_counter()
+        again = run_with_recovery(
+            init_state=lambda: held, train_one_step=captured_step,
+            total_steps=DRILL_STEPS, ckpt_dir=str(root / "captured"),
+            ckpt_every=DRILL_EVERY)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        if failed != [DRILL_FAIL] or not captured:
+            raise AssertionError(f"(d) captured drill: failures {failed}, "
+                                 f"captured {bool(captured)}")
+        same, worst = _state_against(
+            "(d) captured drill", {"params": again["params"],
+                                   "opt_state": again["opt"]},
+            {"params": whole["params"], "opt_state": whole["opt"]})
+        if exact and not same:
+            raise AssertionError(f"(d) the captured drill's state is "
+                                 f"{worst:.3e} off the uninterrupted run's")
+        print(f"(d) the drill with the update captured (the warm-up, then "
+              f"replays; the restore after step {DRILL_FAIL}'s failure "
+              f"copied into the captured buffers): {drill_s:.2f} s; final "
+              f"parameters and moments "
+              + ("bitwise equal to the uninterrupted eager run's" if same
+                 else f"within {worst:.3e} of the uninterrupted run's")
+              + f" ({smi})")
+        del held, static, captured, buffers_step, again
         t0 = time.perf_counter()
         path = save_checkpoint(root / "saved", DRILL_STEPS - 1, final)
         save_s = time.perf_counter() - t0
@@ -2803,15 +3109,66 @@ def _bytes_equal_bool(a, b):
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
-def train_families(device):
-    """(f): two `make_update_fn` steps of every other family at full width
-    with phase 11's cut."""
+def _family_run(model, cfg, device, capture, steps):
+    """`steps` updates of a family's cut model from seed 12's state on one
+    batch, eager (``update_over_buffers``) or captured: its warm-up on a
+    side stream, the state put back to the seed's, the capture there
+    (`core.capture`, as `train` does it), then `steps` replays, each from
+    the state of the eager update of its index. Returns
+    (state, each step's metrics, seconds a step, peak device memory above
+    the start)."""
+    import torch
+
+    from repro_torch.core.capture import CapturedStep, on_side_stream
+    from repro_torch.models import Runtime, make_input_batch
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.train.loop import TrainConfig, update_over_buffers
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = model.init(gen, device=device)
+    batch = make_input_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, gen,
+                             device=device)
+    opt = init_opt_state(params)
+    step = update_over_buffers(model, _train_opt(), Runtime(),
+                               TrainConfig(), params, opt, None, batch)
+    if capture:
+        seed = [p.detach().clone() for p in params.parameters()]
+        side = torch.cuda.Stream(device)
+        on_side_stream(side, step)
+        with torch.no_grad():
+            for p, p0 in zip(params.parameters(), seed):
+                p.copy_(p0)
+            for m in list(opt.mu.parameters()) + list(opt.nu.parameters()):
+                m.zero_()
+            opt.step.zero_()
+        del seed
+        step = CapturedStep(step, side, f"(f) {cfg.name}: the training "
+                            f"update")
+    metrics, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(tuple(float(out[k]) for k in
+                             ("loss", "grad_norm", "lr")))
+    peak = torch.cuda.max_memory_allocated(device) - base
+    return {"params": params, "opt_state": opt}, metrics, secs, peak
+
+
+def train_families(device, smi):
+    """(f): every other family at full width with phase 11's cut, three
+    updates eager and three replays of the captured update from the same
+    state: losses finite, and every step's metrics and the final
+    parameters and moments bitwise, or raise."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.models import Runtime, build_model, make_input_batch
-    from repro_torch.optim.optimizer import OptConfig, init_opt_state
-    from repro_torch.train.loop import TrainConfig, make_update_fn
+    from repro_torch.models import build_model
 
     print("(f) llama4-maverick-400b-a17b left out: its one MoE unit holds "
           "18.7e9 parameters, whose bf16 values and gradients and float32 "
@@ -2820,55 +3177,66 @@ def train_families(device):
         full = get_arch(name)
         cfg = _cut(full, **FAMILY_CUTS[name])
         model = build_model(cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        gen = torch.Generator(device=device).manual_seed(12)
-        params = model.init(gen, device=device)
-        batch = make_input_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, gen,
-                                 device=device)
-        opt = init_opt_state(params)
-        update = make_update_fn(model, OptConfig(), Runtime(), TrainConfig())
         t0 = time.perf_counter()
-        losses, norms = [], []
-        for _ in range(2):
-            _, _, _, m = update(params, opt, None, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-        torch.cuda.synchronize()
+        eager, em, es, ep = _family_run(model, cfg, device, False,
+                                        FAMILY_TRAIN_STEPS)
+        capt, cm, cs, cp = _family_run(model, cfg, device, True,
+                                       FAMILY_TRAIN_STEPS)
         secs = time.perf_counter() - t0
+        values = [v for m in em + cm for v in m]
         finite = all(bool(torch.isfinite(p).all())
-                     for p in params.parameters())
-        if not (np.isfinite(losses + norms).all() and finite):
-            raise AssertionError(f"(f) {name}: losses {losses}, grad norms "
-                                 f"{norms}, parameters finite {finite}")
-        n = sum(p.numel() for p in params.parameters())
+                     for p in capt["params"].parameters())
+        if not (np.isfinite(values).all() and finite):
+            raise AssertionError(f"(f) {name}: metrics {em} / {cm}, "
+                                 f"parameters finite {finite}")
+        if cm != em:
+            raise AssertionError(f"(f) {name}: captured metrics {cm} "
+                                 f"against eager {em}")
+        bitwise, worst = _state_against(f"(f) {name}", capt, eager,
+                                        hold=False)
+        if not bitwise:
+            raise AssertionError(f"(f) {name}: the captured parameters and "
+                                 f"moments are {worst:.3e} of max|ref| off "
+                                 f"the eager ones")
+        del capt
+        n = sum(p.numel() for p in eager["params"].parameters())
         print(f"(f) {name}: layers {cfg.n_layers} of {full.n_layers}, {n} "
-              f"parameters; two steps in {secs:.2f} s, losses "
-              f"{losses[0]:.4f}, {losses[1]:.4f}, grad norms "
-              f"{norms[0]:.4f}, {norms[1]:.4f}; peak device memory "
-              f"{torch.cuda.max_memory_allocated(device)} B")
-        del model, params, batch, opt, update
+              f"parameters; {FAMILY_TRAIN_STEPS} steps eager and captured "
+              f"in {secs:.2f} s, losses "
+              + ", ".join(f"{m[0]:.4f}" for m in em)
+              + "; captured against eager: every step's metrics, the "
+              f"parameters and moments bitwise; a step {es[-1] * 1e3:.3f} "
+              f"ms eager, {cs[-1] * 1e3:.3f} ms a replay; peak device "
+              f"memory {ep} / {cp} B ({smi})")
+        del model, eager
         _fresh_caches()
 
 
 def training_path(device, smi):
-    """Phase 12: (a) train tinyllama-1.1b at full width and depth and the
-    launcher, (c) remat, (b) and (e) the card against the CPU and C19, (d)
-    the recovery drill, (f) every other family. Driven with the launch
-    counts set to 0: returns them (the path launches none)."""
-    _phase(f"12. training: {TRAIN_ARCH} at full width and depth, remat, "
-           f"card against CPU, recovery drill, every family ({smi})")
+    """Phase 12: (a) train tinyllama-1.1b at full width and depth, the
+    update captured, and the launcher, (c) remat, (e) the captured update
+    against the same update eager, (b) the card against the CPU and C19,
+    (d) the recovery drill (eager and captured), (f) every other family
+    (eager and captured). Driven with the launch counts set to 0: returns
+    them (the path launches none)."""
+    _phase(f"12. training: {TRAIN_ARCH} at full width and depth (the "
+           f"update captured), remat, captured against eager, card against "
+           f"CPU, recovery drill, every family ({smi})")
     _fresh_caches()
     _reset_launches()
     model, params, data_cfg = train_full(device, smi)
     remat_modes(device, model, params, data_cfg)
-    del model, params
+    del params
+    _fresh_caches()
+    captured_against_eager(device, smi, model, data_cfg)
+    captured_small(device, smi)
+    del model
     _fresh_caches()
     card_against_cpu(device)
     _fresh_caches()
-    recovery_drill(device)
+    recovery_drill(device, smi)
     _fresh_caches()
-    train_families(device)
+    train_families(device, smi)
     launches = _read_launches()
     if any(launches.values()):
         raise AssertionError(f"the training path launched {launches}")
@@ -2945,11 +3313,13 @@ def sharded_full(device, smi):
               f"{worst:.3e} relative of phase 12 (a)'s (bitwise: "
               f"{got == want}); first step {hist[0]['sec'] * 1e3:.1f} ms "
               f"(DTensor's sharding propagation warms up)")
-        print(f"(a) sharded step on 1x1: median {step_ms:.1f} ms, "
-              f"{tokens / step_ms * 1e3:.0f} tokens/s, peak device memory "
-              f"{peak} B; phase 12 (a) on the same card: {base:.1f} ms, "
-              f"{tokens / base * 1e3:.0f} tokens/s, {PHASE12['peak']} B; "
-              f"DTensor adds {step_ms - base:.1f} ms a step "
+        print(f"(a) sharded step on 1x1 (eager, ROADMAP A4): median "
+              f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s, "
+              f"peak device memory {peak} B; phase 12 (e)'s eager step on "
+              f"the same card: {base:.1f} ms, {tokens / base * 1e3:.0f} "
+              f"tokens/s (a replay of (a)'s captured update "
+              f"{PHASE12['replay_ms']:.1f} ms), (a)'s peak {PHASE12['peak']} "
+              f"B; DTensor adds {step_ms - base:.1f} ms a step "
               f"({step_ms / base:.3f}x) ({smi})")
     finally:
         if dist.is_initialized():
@@ -3414,7 +3784,8 @@ def _check_example(name, module, out, device):
     dense below TOL, the gather exact; spmv_pipeline: each matrix's
     |A x|/|x| against the same power iteration on the reference backend;
     serve_decode: the paged attention against the same query and cache
-    through the ``index`` gather; train_tinylm: finite losses."""
+    through the ``index`` gather; train_tinylm: finite losses, the update
+    captured."""
     import torch
 
     from repro_torch.core.engine import get_engine
@@ -3448,10 +3819,13 @@ def _check_example(name, module, out, device):
               f"(tolerance {TOL} + {TOL}*|ref|)")
     elif name == "train_tinylm":
         losses = [h["loss"] for h in out["history"]]
-        if not losses or not np.isfinite(losses).all():
-            raise AssertionError(f"train_tinylm's losses {losses}")
+        if not losses or not np.isfinite(losses).all() or \
+                not out["captured"]:
+            raise AssertionError(f"train_tinylm's losses {losses}, "
+                                 f"captured {out['captured']}")
         print(f"  train_tinylm: {len(losses)} logged losses, all finite, "
-              f"final {out['final_loss']!r}")
+              f"final {out['final_loss']!r}; the update captured (remat "
+              f"dots)")
 
 
 def main():

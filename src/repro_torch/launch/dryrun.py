@@ -69,7 +69,8 @@ from repro_torch.core.runtime import resolve_device
 from repro_torch.models import build_model, cache_shapes, input_specs, \
     param_shapes
 from repro_torch.models.transformer import Runtime
-from repro_torch.optim.optimizer import OptConfig, OptState, init_opt_state
+from repro_torch.optim.optimizer import OptConfig, OptState, \
+    init_opt_state, zero1_opt_state
 from repro_torch.optim.tree import named_tensors
 
 ARTIFACTS = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
@@ -488,16 +489,14 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     if mesh is None:
         p_sh = m_sh = None
     else:
-        # ZeRO-1 moments and FSDP parameters: `repro`'s fold, per layer
-        folded = to_shardings(zero1_tensor_pspecs(
-            params, mesh, expert_2d=expert_2d), mesh) if zero1 or fsdp \
-            else None
+        # FSDP parameters: `repro`'s fold, per layer
         unfolded = shardings(param_pspecs(params, mesh, expert_2d=expert_2d),
                              params)
-        p_sh = folded if fsdp else unfolded
-        # the moments on `repro`'s: folded under zero1, else the rules'
-        m_sh = (folded if zero1 else unfolded) if train and (
-            zero1 or fsdp) else None
+        p_sh = to_shardings(zero1_tensor_pspecs(
+            params, mesh, expert_2d=expert_2d), mesh) if fsdp else unfolded
+        # the moments on `repro`'s: ZeRO-1's (`zero1_opt_state`) under
+        # zero1, else the rules'
+        m_sh = unfolded if train and (zero1 or fsdp) else None
     if cell.kind == "decode":
         batch = {"tokens": torch.empty((cell.global_batch, 1),
                                        dtype=torch.int32, device="meta")}
@@ -527,8 +526,16 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
         placed = params.like(_place_tree(tree, make, p_sh))
         batch = _place_tree(batch, make, b_sh)
         if train:
+            step_device = device if device is not None or mesh is None \
+                else dtensor.mesh_device(mesh)
             if m_sh is None:
                 opt = init_opt_state(placed)
+            elif zero1:  # the moments a leaf stacked where no per-layer
+                # placement holds `repro`'s bytes (ROADMAP C27)
+                opt = zero1_opt_state(
+                    params, mesh, expert_2d=expert_2d,
+                    make=lambda t, sh: make(t, sh, torch.float32),
+                    device=step_device)
             else:
                 def moment():
                     return params.like(_place_tree(
@@ -536,8 +543,7 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
                         m_sh)).requires_grad_(False)
 
                 opt = OptState(mu=moment(), nu=moment(), step=torch.zeros(
-                    (), dtype=torch.int32, device=dtensor.mesh_device(mesh)
-                    if device is None else device))
+                    (), dtype=torch.int32, device=step_device))
             return make_train_step(model, OptConfig(), rt), \
                 (placed, opt, batch)
         if cell.kind == "prefill":

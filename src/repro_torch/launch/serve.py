@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults
+from repro_torch.core.capture import CapturedStep, on_side_stream
 from repro_torch.core import matrices as _matgen
 
 _SPMV_MATRICES = {
@@ -600,34 +601,6 @@ def one_token_step(model, params, tokens, cache, rt):
     return step
 
 
-class CapturedStep:
-    """A step function (`one_token_step`) captured as one CUDA graph on
-    `stream` (where its warm-up ran), for `name`'s model. Calling it replays
-    the graph and returns its static logits; the kernel launches it holds
-    are added to the wrappers' counts on each replay
-    (`kernels.ops.CapturedLaunches`). A capture that fails raises: there is
-    no eager fallback."""
-
-    def __init__(self, step, stream, name: str):
-        from repro_torch.kernels.ops import CapturedLaunches
-
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with CapturedLaunches() as launches, \
-                    torch.cuda.graph(self.graph, stream=stream):
-                self.logits = step()
-        except Exception as exc:
-            raise RuntimeError(
-                f"{name}: generate could not capture the decode step into a "
-                f"CUDA graph ({exc})") from exc
-        self.launches = launches
-
-    def __call__(self):
-        self.graph.replay()
-        self.launches.replayed()
-        return self.logits
-
-
 def generate(model, params, prompt, *, max_new_tokens: int, rt,
              extras_batch=None, greedy: bool = True, generator=None,
              capture=None, step_hook=None):
@@ -693,13 +666,12 @@ def generate(model, params, prompt, *, max_new_tokens: int, rt,
             if graph is not None:
                 logits = run("replay", tokens, graph)
             elif side is not None:
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side):
-                    logits = run("step", tokens, step)
-                torch.cuda.current_stream(device).wait_stream(side)
+                logits = on_side_stream(side, lambda: run("step", tokens,
+                                                          step))
                 if i + 1 < max_new_tokens:
                     graph = run("capture", tokens, lambda: CapturedStep(
-                        step, side, model.cfg.name))
+                        step, side, f"{model.cfg.name}: generate could not "
+                        f"capture the decode step"))
             else:
                 logits = run("step", tokens, step)
             if greedy:

@@ -18,8 +18,9 @@ Where `repro` lets XLA's ``jnp`` do it implicitly, the port asks for:
 ``torch.argsort(stable=True)`` (``jnp.argsort`` is stable), a stable
 descending sort for ``lax.top_k`` (ties go to the lower expert), and one
 spare buffer slot for ``.at[slot].set(..., mode="drop")`` (cut after the
-scatter). The combine is ``index_add_``, a scatter-add whose float order
-may differ from XLA's.
+scatter). The combine adds each token's k rows in float32 in the sorted
+order and rounds once (a sequential ``index_add_``; no atomics, so it
+repeats itself bitwise on the card), an order that may differ from XLA's.
 """
 from __future__ import annotations
 
@@ -123,8 +124,15 @@ def _combine_local(out, slot, in_cap, st, sw, *, T, E, C):
         torch.zeros((), dtype=out.dtype, device=out.device),
     )
     contrib = (gathered.to(torch.float32) * sw[:, None]).to(out.dtype)
-    y = torch.zeros((T, D), dtype=out.dtype, device=out.device)
-    return y.index_add_(0, st, contrib)
+    # each token's k rows (`st` names every token k times) added in float32
+    # in `st`'s order and rounded once, as `index_add_` adds them on the
+    # CPU; the card's `index_add_` adds with atomics in an order that
+    # changes from run to run, so its update would not repeat itself
+    rows = torch.argsort(st, stable=True).reshape(T, -1)
+    y = torch.zeros((T, D), dtype=torch.float32, device=out.device)
+    for j in range(rows.shape[1]):
+        y = y + contrib[rows[:, j]].to(torch.float32)
+    return y.to(out.dtype)
 
 
 def _dispatch_one_shard(xf, w, idx, *, E, k, C, w_in_e, w_gate_e, w_out_e):

@@ -16,7 +16,7 @@ leaf in `repro`'s order and name each leaf as `jax.tree_util.keystr` does:
     stacked axes' sizes;
   * `map_tree(fn, tree, *others)`: a tree of `tree`'s structure (a module
     of its class, or nested dicts and lists) whose tensors are
-    ``fn(t, *others_t)``, matched by name.
+    ``fn(t, *others_t)``, matched by name (`map_named`: ``fn(name, t)``).
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ def leaves(tree, stacked=None) -> List[Leaf]:
     names = list(named_tensors(tree))
     if stacked is None:
         cfg = getattr(tree, "cfg", None)
-        stacked = (_stacked_paths(cfg, tree.to_tree()) if cfg is not None
+        stacked = (_stacked_paths(cfg, _structure(tree)) if cfg is not None
                    else {})
     groups: Dict[tuple, list] = {}
     for name in names:
@@ -127,3 +127,28 @@ def map_tree(fn: Callable, tree, *others):
         return tree.like(_map_named(fn, tree.to_tree(), "", named)) \
             .requires_grad_(False)
     return _map_named(fn, tree, "", named)
+
+
+def map_named(fn: Callable, tree):
+    """`map_tree` with ``fn(name, t)``, each tensor's dotted name beside it;
+    where `fn` returns None the tree holds None."""
+    names = {n: n for n in named_tensors(tree)}
+
+    def call(t, name):
+        return fn(name, t)
+
+    if isinstance(tree, nn.Module):
+        return tree.like(_map_named(call, _structure(tree), "", [names])) \
+            .requires_grad_(False)
+    return _map_named(call, tree, "", [names])
+
+
+def _structure(module):
+    """A parameter module's nested dicts and lists holding its parameters
+    themselves (``to_tree`` without ``.data``: no op runs on them, so a
+    module on ``meta`` maps under a fake mode)."""
+    if module is None or torch.is_tensor(module):
+        return module
+    if hasattr(module, "keys"):
+        return {k: _structure(module[k]) for k in module.keys()}
+    return [_structure(m) for m in module]

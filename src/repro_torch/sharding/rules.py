@@ -330,6 +330,31 @@ def zero1_pspecs(params, mesh, *, expert_2d: bool = False) -> Dict[str, Spec]:
             for key, shape in _leaf_shapes(params)}
 
 
+def _zero1_layers(params, mesh, expert_2d: bool):
+    """(leaf, `zero1_pspecs`' spec of the leaf, the spec of each of its
+    port tensors, whether that spec holds `repro`'s bytes) for every
+    `repro` leaf of `params` (see `zero1_tensor_pspecs`)."""
+    sizes = axis_sizes(mesh)
+    dp, dp_size = _dp(sizes)
+    base = param_pspecs(params, mesh, expert_2d=expert_2d)
+    named = named_tensors(params)
+    for leaf in leaves(params):
+        n = len(leaf.lead)
+        layer = tuple(named[leaf.names[0]].shape)
+        spec = tuple(_fold_dp(tuple(leaf.lead) + layer, base[leaf.key], dp,
+                              dp_size))  # `zero1_pspecs`' leaf
+        if not any(e is not None for e in spec[:n]):
+            yield leaf, spec, spec[n:], True
+            continue
+        own = tuple(base[leaf.key]) + (None,) * (n + len(layer)
+                                                 - len(base[leaf.key]))
+        per_layer = _fold_dp(layer, own[n:], dp, dp_size)
+        if not _axes(per_layer) & set(dp):
+            per_layer = _fold_onto_model(layer, per_layer, dp,
+                                         dp_size * sizes.get("model", 1))
+        yield leaf, spec, per_layer, bool(_axes(per_layer) & set(dp))
+
+
 def zero1_tensor_pspecs(params, mesh, *, expert_2d: bool = False
                         ) -> Dict[str, Spec]:
     """{port tensor name: spec} of `zero1_pspecs` (the ZeRO-1 moments, and
@@ -340,30 +365,27 @@ def zero1_tensor_pspecs(params, mesh, *, expert_2d: bool = False
     each cut dp ways). A layer with no such dim (a bias already on 'model')
     takes them jointly with 'model' on its model-sharded dim, (*dp,
     'model'), where dp x model divides it: the same bytes again. Where
-    neither divides (whisper's 1280-wide biases on 2x16x16) it keeps its
-    parameter spec (ROADMAP C27)."""
-    sizes = axis_sizes(mesh)
-    dp, dp_size = _dp(sizes)
-    base = param_pspecs(params, mesh, expert_2d=expert_2d)
-    named = named_tensors(params)
+    neither divides (whisper's 1280-wide biases on 2x16x16) the tensor
+    keeps its parameter spec: its moments are stacked instead
+    (`zero1_stacked_pspecs`), its FSDP parameter stays as it is (ROADMAP
+    C27)."""
     out = {}
-    for leaf in leaves(params):
-        n = len(leaf.lead)
-        layer = tuple(named[leaf.names[0]].shape)
-        spec = tuple(_fold_dp(tuple(leaf.lead) + layer, base[leaf.key], dp,
-                              dp_size))  # `zero1_pspecs`' leaf
-        if any(e is not None for e in spec[:n]):
-            own = tuple(base[leaf.key]) + (None,) * (n + len(layer)
-                                                     - len(base[leaf.key]))
-            spec = _fold_dp(layer, own[n:], dp, dp_size)
-            if not _axes(spec) & set(dp):
-                spec = _fold_onto_model(layer, spec, dp,
-                                        dp_size * sizes.get("model", 1))
-        else:
-            spec = spec[n:]
+    for leaf, _, per_layer, _ in _zero1_layers(params, mesh, expert_2d):
         for name in leaf.names:
-            out[name] = spec
+            out[name] = per_layer
     return out
+
+
+def zero1_stacked_pspecs(params, mesh, *, expert_2d: bool = False
+                         ) -> Dict[str, Spec]:
+    """{keystr: `zero1_pspecs`' spec} of the `repro` leaves whose ZeRO-1
+    moments no per-layer placement holds in `repro`'s bytes (whisper's
+    1280-wide q/k/v biases on 2x16x16: 512 does not divide 1280): the
+    optimizer keeps their moments as one stacked ``(*lead, ...)`` tensor a
+    leaf on this spec, the layer axis cut over the DP axes as `repro` cuts
+    it (`optim.optimizer.zero1_opt_state`)."""
+    return {leaf.key: spec for leaf, spec, _, held in
+            _zero1_layers(params, mesh, expert_2d) if not held}
 
 
 def tensor_pspecs(tree, leaf_specs: Dict[str, Spec],

@@ -46,12 +46,11 @@ from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.models import Runtime, build_model, lm_loss, \
     param_shapes
 from repro_torch.optim.compression import init_residual
-from repro_torch.optim.optimizer import OptConfig, OptState, init_opt_state
-from repro_torch.optim.tree import map_tree, named_tensors
-from repro_torch.sharding.dtensor import distribute_module, \
-    holds_dtensors, mesh_device
+from repro_torch.optim.optimizer import OptConfig, init_opt_state
+from repro_torch.optim.tree import named_tensors
+from repro_torch.sharding.dtensor import holds_dtensors, mesh_device
 from repro_torch.sharding.rules import batch_pspecs, param_pspecs, \
-    param_shardings, tensor_pspecs, to_shardings, zero1_tensor_pspecs
+    param_shardings, tensor_pspecs, to_shardings
 from repro_torch.train.checkpoint import restore_latest, save_checkpoint
 from repro_torch.train.fault_tolerance import remesh_shardings
 from repro_torch.train.loop import TrainConfig, make_update_fn, \
@@ -86,23 +85,6 @@ def _placed(cfg, case, mesh):
     return params, batch
 
 
-def _zero1_state(cfg, params) -> OptState:
-    """Zero AdamW moments on the ZeRO-1 layout of `params`' mesh
-    (`rules.zero1_tensor_pspecs`: `repro`'s fold, per layer)."""
-    mesh = next(iter(named_tensors(params).values())).device_mesh
-    device = mesh_device(mesh)
-    shapes = param_shapes(cfg)
-    sh = to_shardings(zero1_tensor_pspecs(shapes, mesh), mesh)
-
-    def moment():
-        zeros = map_tree(lambda t: torch.zeros(t.shape, dtype=torch.float32),
-                         shapes)
-        return distribute_module(zeros, sh, device=device)
-
-    return OptState(mu=moment(), nu=moment(), step=torch.zeros(
-        (), dtype=torch.int32, device=device))
-
-
 def _update(case: Dict[str, Any], params, batch) -> Dict[str, Any]:
     """`lm_loss`'s value and gradients, then one update, of `params` on
     `batch` (DTensors on a mesh, or plain tensors on one device): the
@@ -120,8 +102,7 @@ def _update(case: Dict[str, Any], params, batch) -> Dict[str, Any]:
         out["loss"] = float(loss)
         out["grads"] = model_params_to_numpy(cfg, grads)
         del grads
-    opt = _zero1_state(cfg, params) if case.get("zero1") and \
-        holds_dtensors(params) else init_opt_state(params)
+    opt = init_opt_state(params, zero1=bool(case.get("zero1")))
     opt_cfg = OptConfig(**case.get("opt", {}))
     if case.get("tcfg") is None:
         _, opt, metrics = make_train_step(model, opt_cfg, rt)(

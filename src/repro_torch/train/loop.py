@@ -13,6 +13,14 @@ rank keeps its rows of the batch by `batch_pspecs`, and the same update
 runs on them: DTensor inserts the collectives `repro`'s pjit leaves to
 XLA, and each gradient is reduced onto its parameter's layout before the
 optimizer sees it. Metrics come back as replicated scalars on every rank.
+
+On the card `train` runs `repro`'s ``jax.jit(update)`` as one CUDA graph:
+`update_over_buffers` is the update over static buffers (the parameters,
+the moments and the step updated in place, the compression residual and
+the metrics copied back, a static batch the pipeline's batch is copied
+into); `train` runs it once eagerly on a side stream, the warm-up and a
+real step, then captures it there once (`core.capture.CapturedStep`) and
+replays it a step. On a process mesh the update stays eager (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -21,8 +29,10 @@ import functools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.capture import CapturedStep, on_side_stream
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, \
     TokenPipeline, device_put_batch
@@ -121,6 +131,46 @@ def make_update_fn(model: Model, opt_cfg: OptConfig, rt: Runtime,
     return update
 
 
+METRICS = ("loss", "grad_norm", "lr")
+
+
+def update_over_buffers(model: Model, opt_cfg: OptConfig, rt: Runtime,
+                        tcfg: TrainConfig, params, opt_state: OptState,
+                        residual, batch: Dict[str, torch.Tensor]):
+    """The update `train` runs over static buffers, the counterpart of
+    `launch.serve.one_token_step`: `make_update_fn`'s update of `params`
+    and `opt_state` (in place) on the tensors `batch` holds when it runs,
+    the new compression residual copied back into `residual`'s tensors.
+    Returns a function of no arguments that runs one update and returns
+    its metrics, ``{"loss", "grad_norm", "lr"}``, as the same tensors on
+    every call (made by the first; a captured graph writes them)."""
+    update = make_update_fn(model, opt_cfg, rt, tcfg)
+    outputs: Dict[str, torch.Tensor] = {}
+
+    def step():
+        _, _, new, metrics = update(params, opt_state, residual, batch)
+        if new is not residual:  # compression: a new residual tree
+            into = named_tensors(residual)
+            for name, t in named_tensors(new).items():
+                into[name].copy_(t)
+        for k in METRICS:
+            if k in outputs:
+                outputs[k].copy_(metrics[k])
+            else:
+                outputs[k] = metrics[k].detach().clone()
+        return outputs
+
+    return step
+
+
+def copy_batch(static: Dict[str, torch.Tensor], host) -> None:
+    """The pipeline's numpy batch copied into the static batch on the card,
+    through pinned memory without blocking the host."""
+    for name, arr in host.items():
+        static[name].copy_(torch.from_numpy(np.ascontiguousarray(arr))
+                           .pin_memory(), non_blocking=True)
+
+
 def _process_mesh(mesh) -> bool:
     """Whether `mesh` is a ``torch.distributed`` process mesh (a
     ``DeviceMesh`` with named dims), not a grid of devices in one
@@ -160,15 +210,37 @@ def train(
     data_cfg: Optional[DataConfig] = None,
     seed: int = 0,
     device=None,
+    capture: Optional[bool] = None,
 ) -> Dict[str, Any]:
     """End-to-end training on `device` (default the card; a one-device
     `mesh` of `launch.mesh` names it instead), or sharded over a process
     mesh (`launch.mesh.make_process_mesh`; every rank of it calls this).
     Returns summary metrics (final loss, history) with the trained
-    parameters and optimizer state (DTensors on a process mesh)."""
+    parameters and optimizer state (DTensors on a process mesh).
+
+    Every step is `update_over_buffers`' update. On the card (``capture``
+    None or True) the first step runs eagerly on a side stream, the
+    capture's warm-up and a real step (logged, checkpointed), then the
+    update is captured there once as a CUDA graph
+    (`core.capture.CapturedStep`) and each later step copies the
+    pipeline's batch into the static batch and replays it; a capture that
+    fails raises. ``capture=False`` runs every step eagerly, as the CPU
+    does; ``capture=True`` off the card raises ValueError, and on a
+    process mesh NotImplementedError (ROADMAP A4). Each history entry
+    reads the step's loss, grad norm and lr from its outputs and names
+    its kind: ``"step"`` (eager) or ``"replay"``."""
     sharded = _process_mesh(mesh)
+    if sharded and capture:
+        raise NotImplementedError(
+            "train(capture=True) on a process mesh: the sharded update is "
+            "not captured yet (ROADMAP A4); pass capture=None or False")
     device = _mesh_device(mesh, device) if sharded \
         else _single_device(mesh, device)
+    if capture is None:
+        capture = device.type == "cuda" and not sharded
+    if capture and device.type != "cuda":
+        raise ValueError(f"capture=True needs the card; training runs on "
+                         f"{device}")
     cfg = model.cfg
     data_cfg = data_cfg or DataConfig(
         vocab_size=cfg.vocab_size, seq_len=128, global_batch=8
@@ -187,11 +259,16 @@ def train(
     opt_state = init_opt_state(params)
     residual = init_residual(params) if tcfg.grad_compression else None
 
-    update = make_update_fn(model, opt_cfg, rt, tcfg)
+    batch: Dict[str, torch.Tensor] = {}  # the static batch the update reads
+    update = update_over_buffers(model, opt_cfg, rt, tcfg, params,
+                                 opt_state, residual, batch)
+    side = torch.cuda.Stream(device) if capture else None
+    graph: Optional[CapturedStep] = None
 
     ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
     start_step = 0
     if ckpt is not None:
+        # into the same tensors: the update (and its graph) reads them
         restored = restore_latest(
             tcfg.ckpt_dir, {"params": params, "opt": opt_state}
         )
@@ -203,12 +280,18 @@ def train(
     it = PrefetchIterator(iter(pipeline), depth=2)
     t_start = time.time()
     slow_steps = 0
+    capture_s = None
     for step in range(start_step, tcfg.total_steps):
         t0 = time.time()
-        batch = device_put_batch(next(it), device, shardings=batch_sh)
-        params, opt_state, residual, metrics = update(
-            params, opt_state, residual, batch
-        )
+        host = next(it)
+        if graph is not None:
+            copy_batch(batch, host)
+            kind, metrics = "replay", graph()
+        else:
+            batch.update(device_put_batch(host, device, shardings=batch_sh))
+            kind = "step"
+            metrics = update() if side is None else on_side_stream(side,
+                                                                   update)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # honest step timing
         dt = time.time() - t0
@@ -217,12 +300,20 @@ def train(
         if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:
             history.append(
                 {"step": step, "loss": float(metrics["loss"]),
-                 "grad_norm": float(metrics["grad_norm"]), "sec": dt}
+                 "grad_norm": float(metrics["grad_norm"]),
+                 "lr": float(metrics["lr"]), "kind": kind, "sec": dt}
             )
         if ckpt is not None and (
             step % tcfg.ckpt_every == 0 or step == tcfg.total_steps - 1
         ):
             ckpt.save(step, {"params": params, "opt": opt_state})
+        if side is not None and graph is None \
+                and step + 1 < tcfg.total_steps:
+            t0 = time.time()
+            graph = CapturedStep(update, side, f"{cfg.name}: train could "
+                                 f"not capture the training update")
+            torch.cuda.synchronize(device)
+            capture_s = time.time() - t0
     if ckpt is not None:
         ckpt.wait()
     it.close()
@@ -235,4 +326,6 @@ def train(
         "slow_steps": slow_steps,
         "steps": max(tcfg.total_steps - start_step, 0),
         "device": device,
+        "captured": graph is not None,
+        "capture_seconds": capture_s,
     }

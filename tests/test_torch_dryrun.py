@@ -185,7 +185,9 @@ def test_argument_bytes_equal_repros_rules_on_every_cell(mesh_key):
 # already model-sharded. On 16x16 the port folds 'data' jointly with 'model'
 # onto it (1280 / 256), and its FFN-in biases (5120) on both meshes; on
 # 2x16x16, 512 does not divide 1280 and no per-layer placement holds
-# `repro`'s bytes (ROADMAP C27).
+# `repro`'s bytes (ROADMAP C27). Their ZeRO-1 moments are kept stacked, as
+# `repro` holds them (`optimizer.zero1_opt_state`): `repro`'s bytes. Their
+# FSDP parameters stay model-sharded: rank 0 holds more than `repro`.
 FOLD_EXCEPTIONS = {"16x16": {}, "2x16x16": {"whisper-large-v3": [
     f"['{stack}']['{block}']['{b}']"
     for stack, blocks in (("dec", ("cross_attn", "self_attn")),
@@ -217,11 +219,11 @@ def _fold_exceptions(name, mesh_key) -> list:
         and not _names_data(per_tensor[leaf.names[0]]))
 
 
-def _fold_exception_bytes(name, mesh_key, *, zero1, fsdp) -> int:
+def _fold_exception_bytes(name, mesh_key, *, fsdp) -> int:
     """What rank 0 holds more than `repro` of the `FOLD_EXCEPTIONS` leaves:
-    each is model-sharded only, where `repro` also cuts its layer axis
-    dp ways (the moments twice in float32 under `zero1`, a train cell's,
-    the parameters in their dtype under `fsdp`)."""
+    under `fsdp` each parameter is model-sharded only, where `repro` also
+    cuts its layer axis dp ways (its moments under ZeRO-1 are stacked and
+    cut as `repro` cuts them: nothing more)."""
     shape, names = MESHES[mesh_key]
     sizes = dict(zip(names, shape))
     dp = sizes["data"] * sizes.get("pod", 1)
@@ -234,7 +236,7 @@ def _fold_exception_bytes(name, mesh_key, *, zero1, fsdp) -> int:
         per_layer = x.size // x.shape[0] // sizes["model"]
         held = x.shape[0] * per_layer  # every layer, model-sharded
         want = x.shape[0] // dp * per_layer
-        extra += (held - want) * (2 * 4 * zero1 + x.dtype.itemsize * fsdp)
+        extra += (held - want) * x.dtype.itemsize * fsdp
     return extra
 
 
@@ -246,14 +248,13 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
     parameters' rules): where `repro` folds the DP axes onto a stacked
     layer axis (smollm-360m, llama3-8b, whisper-large-v3) the port folds
     them onto each layer's tensor (`rules.zero1_tensor_pspecs`; jointly
-    with 'model' on a bias already model-sharded), the same bytes a device,
-    but for the named `FOLD_EXCEPTIONS` of 2x16x16, which hold their stated
-    difference more."""
+    with 'model' on a bias already model-sharded), the same bytes a device;
+    the named `FOLD_EXCEPTIONS` of 2x16x16 keep their moments stacked
+    (`repro`'s bytes) and, under FSDP, hold their stated difference more."""
     mesh = FakeMesh(*MESHES[mesh_key])
     got, want = {}, {}
     for name, shape in CELLS:
         cell = dr.SHAPES_BY_NAME[shape]
-        train = cell.kind == "train"
         flags = {"zero1": mode == "zero1", "fsdp": mode == "fsdp"}
         assert _fold_exceptions(name, mesh_key) == \
             sorted(FOLD_EXCEPTIONS[mesh_key].get(name, []))
@@ -263,10 +264,106 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
         got[name, shape] = dr.local_bytes(args)
         want[name, shape] = _repro_argument_bytes(
             name, cell, mesh_key, **flags) + _fold_exception_bytes(
-            name, mesh_key, zero1=flags["zero1"] and train,
-            fsdp=flags["fsdp"])
+            name, mesh_key, fsdp=flags["fsdp"])
     assert len(got) == 32
     assert got == want
+
+
+@pytest.mark.parametrize("mesh_key", sorted(MESHES))
+def test_zero1_keeps_the_unfolded_leaves_moments_stacked(mesh_key):
+    """ROADMAP C27's ZeRO-1 half: on 2x16x16 the moments of whisper's nine
+    `FOLD_EXCEPTIONS` leaves are one float32 (32, 1280) tensor a leaf on
+    `repro`'s spec, (('pod', 'data'), 'model'): rank 0 holds its row of 80,
+    `repro`'s bytes, and the per-layer moments hold None there. On 16x16
+    every leaf folds per layer and nothing is stacked; one device stacks
+    nothing."""
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.optim.tree import leaves as tree_leaves
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.sharding import rules
+
+    mesh = FakeMesh(*MESHES[mesh_key])
+    cfg, cell = ARCHS["whisper-large-v3"], dr.SHAPES_BY_NAME["train_4k"]
+    keys = sorted(FOLD_EXCEPTIONS[mesh_key].get(cfg.name, []))
+    params = dr._param_shapes(cfg)
+    assert sorted(rules.zero1_stacked_pspecs(params, mesh)) == keys
+    _, (_, opt, _) = dr.step_inputs(cfg, cell, dr.default_runtime(cell),
+                                    mesh=mesh, device="meta",
+                                    make=_local_meta, zero1=True)
+    leaves = {leaf.key: leaf for leaf in tree_leaves(params)}
+    held = set(named_tensors(opt.mu))
+    if not keys:
+        assert opt.stacked is None
+        assert held == set(named_tensors(params))
+    else:
+        assert sorted(opt.stacked["mu"]) == sorted(opt.stacked["nu"]) == keys
+        for key in keys:
+            assert rules.zero1_stacked_pspecs(params, mesh)[key] == \
+                (("pod", "data"), "model")
+            for part in ("mu", "nu"):
+                t = opt.stacked[part][key]
+                assert t.dtype == torch.float32
+                assert tuple(t.shape) == (1, 80)  # 32 / 32 layers, 1280 / 16
+            assert not held & set(leaves[key].names)
+        assert held | {n for k in keys for n in leaves[k].names} == \
+            set(named_tensors(params))
+    one = init_opt_state(dr._param_shapes(cfg.reduced()), zero1=True)
+    assert one.stacked is None
+    assert set(named_tensors(one.mu)) == set(named_tensors(
+        dr._param_shapes(cfg.reduced())))
+
+
+def test_stacked_moments_update_on_a_fake_world(monkeypatch):
+    """The update of stacked moments through DTensor: reduced whisper's
+    q/k/v biases (4 and 2 layers, 64 wide on a fake 2x2 world, where the
+    per-layer fold holds) forced stacked on `repro`'s spec. The cell runs,
+    with the per-layer fold's argument bytes (64 / 4 a layer = 4 layers /
+    2 x 64 / 2)."""
+    from repro_torch.sharding import rules
+
+    cfg, cell = get_arch("whisper-large-v3").reduced(), MINI["train_mini"]
+    mesh = FakeMesh((2, 2), ("data", "model"))
+    rt = dr.default_runtime(cell)
+    per_layer = dr.local_bytes(dr.step_inputs(
+        cfg, cell, rt, mesh=mesh, device="meta", make=_local_meta,
+        zero1=True)[1])
+    folded = rules.zero1_pspecs(dr._param_shapes(cfg), mesh)
+    forced = {k: v for k, v in folded.items()
+              if k.endswith(("['bq']", "['bk']", "['bv']"))}
+    assert len(forced) == 9
+    monkeypatch.setattr(rules, "zero1_stacked_pspecs",
+                        lambda p, mesh, **kw: forced)
+    _, (_, opt, _) = dr.step_inputs(cfg, cell, rt, mesh=mesh, device="meta",
+                                    make=_local_meta, zero1=True)
+    assert sorted(opt.stacked["mu"]) == sorted(forced)
+    stacked = dr.run_cell(cfg, cell, save=False, device="cpu",
+                          mesh_shape=(2, 2), zero1=True)
+    assert stacked.ok, stacked.error
+    assert stacked.memory["argument_size_in_bytes"] == per_layer
+
+
+def test_a_layers_row_of_a_stacked_parameter_gathers_the_whole_stack():
+    """What keeps C27's FSDP half open: a parameter stacked as `repro`
+    holds whisper's (32, 1280) bias on 2x16x16, (('pod', 'data'),
+    'model'), hands a layer its row only through DTensor's select, which
+    gathers the whole stack over 'pod' and 'data' first on every rank (two
+    all-gathers, 32 x 80 bf16 elements a rank), once a layer: 32 times
+    the bytes of the stack a step, where FSDP gathers one layer."""
+    from repro_torch.sharding import dtensor, rules
+
+    with dr.fake_world(512):
+        mesh = dr.mesh_of((2, 16, 16), "cpu")
+        fake = FakeTensorMode(allow_non_fake_inputs=False)
+        with fake:
+            stack = dtensor.empty(
+                torch.empty((32, 1280), dtype=torch.bfloat16, device="meta"),
+                rules.Sharding(mesh, rules.to_placements(
+                    (("pod", "data"), "model"), mesh)), "cpu")
+        assert tuple(stack.to_local().shape) == (1, 80)
+        counts = dr.count_step(lambda p: p[5] * 2, (stack,),
+                               dr.StepCounter(fake))
+    assert counts["collectives"]["op_count"] == 2
+    assert counts["collectives"]["all-gather"] >= 32 * 80 * 2
 
 
 # ---------------------------------------------------------------------------

@@ -1168,3 +1168,175 @@ def test_sharded_step_on_a_one_card_mesh_equals_the_unsharded_step(cuda):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The training update captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _tiny_cfg():
+    """Reduced tinyllama (float32) cut to 2 layers."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS["tinyllama-1.1b"].reduced(), n_layers=2)
+
+
+def _train_on_card(cuda, capture, steps=4, remat="none", cfg=None, **kw):
+    """`train()` of `cfg` (default `_tiny_cfg`) on the card for `steps`
+    steps: (its output, each step's kind, each step's loss, grad norm and
+    lr as its history read them from the step's outputs)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = cfg or _tiny_cfg()
+    out = train(build_model(cfg), rt=Runtime(remat=remat),
+                opt_cfg=OptConfig(lr=1e-3, warmup_steps=2, total_steps=8),
+                tcfg=TrainConfig(total_steps=steps, log_every=1, **kw),
+                data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=4),
+                device=cuda, capture=capture)
+    hist = out["history"]
+    return out, [h["kind"] for h in hist], [
+        (h["loss"], h["grad_norm"], h["lr"]) for h in hist]
+
+
+def _captured_update_on_card(cuda):
+    """`update_over_buffers`' update of `_tiny_cfg` on the card, warmed up
+    on a side stream and captured there (`core.capture`), as `train` does
+    it: the `CapturedStep`."""
+    from repro_torch.core.capture import CapturedStep, on_side_stream
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, \
+        device_put_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.loop import TrainConfig, update_over_buffers
+
+    cfg = _tiny_cfg()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    batch = device_put_batch(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)).batch_at(0),
+        cuda)
+    step = update_over_buffers(model, OptConfig(), Runtime(), TrainConfig(),
+                               params, init_opt_state(params), None, batch)
+    side = torch.cuda.Stream(cuda)
+    on_side_stream(side, step)
+    return CapturedStep(step, side, "the training update")
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"microbatches": 2}, {"grad_compression": True},
+    {"microbatches": 2, "grad_compression": True}, {"remat": "full"},
+    {"remat": "dots"}])
+def test_captured_update_equals_eager_bitwise(cuda, kw):
+    """`train` on the card captures its update after one eager step on a
+    side stream and replays it; from the same seed the replays give every
+    step's loss, grad norm and lr and the final parameters and moments of
+    the same steps run eagerly, bit for bit (the same kernels in the same
+    order)."""
+    from repro_torch.optim.tree import named_tensors
+
+    (eo, ek, em), (co, ck, cm) = (_train_on_card(cuda, c, **kw)
+                                  for c in (False, True))
+    assert ek == ["step"] * 4
+    assert ck == ["step"] + ["replay"] * 3
+    assert co["captured"] and not eo["captured"]
+    assert co["capture_seconds"] > 0
+    assert cm == em
+    for part in ("params", "mu", "nu"):
+        a, b = (named_tensors(o["params"] if part == "params"
+                              else getattr(o["opt_state"], part))
+                for o in (co, eo))
+        for name, t in b.items():
+            assert torch.equal(a[name], t), (part, name)
+    assert int(co["opt_state"].step) == int(eo["opt_state"].step) == 4
+
+
+def _state_bits(out):
+    from repro_torch.optim.tree import named_tensors
+
+    return {(part, n): t for part in ("params", "mu", "nu")
+            for n, t in named_tensors(
+                out["params"] if part == "params"
+                else getattr(out["opt_state"], part)).items()}
+
+
+def test_moe_update_repeats_itself_and_its_replays_bitwise(cuda):
+    """The MoE combine adds each token's expert rows in a fixed order (no
+    atomics): reduced deepseek-v2-lite's eager update repeats itself bit
+    for bit, and the captured update's replays equal it, every step's
+    metrics and the final parameters and moments."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS["deepseek-v2-lite-16b"].reduced(),
+                              dtype="bfloat16")
+    runs = [_train_on_card(cuda, c, cfg=cfg) for c in (False, False, True)]
+    (e1, _, m1), (e2, _, m2), (c, kinds, mc) = runs
+    assert kinds == ["step"] + ["replay"] * 3 and c["captured"]
+    assert m1 == m2 == mc
+    want = _state_bits(e1)
+    for got in (_state_bits(e2), _state_bits(c)):
+        for key, t in want.items():
+            assert torch.equal(got[key], t), key
+
+
+def test_training_capture_that_fails_raises(cuda, monkeypatch):
+    """A loss that synchronises the host cannot be captured: `train`
+    raises, naming the model, after its eager first step, rather than
+    train eagerly; without the sync the same run captures."""
+    from repro_torch.train import loop as tloop
+
+    real = tloop.lm_loss
+
+    def syncing(model, params, batch, rt):
+        loss = real(model, params, batch, rt)
+        return loss * float(loss.detach().abs() > -1)
+
+    monkeypatch.setattr(tloop, "lm_loss", syncing)
+    with pytest.raises(RuntimeError, match="tinyllama.*could not capture "
+                                           "the training update"):
+        _train_on_card(cuda, None)
+    monkeypatch.setattr(tloop, "lm_loss", real)
+    torch.cuda.synchronize()
+    out, kinds, _ = _train_on_card(cuda, None, steps=3)
+    assert out["captured"] and kinds[-1] == "replay"
+
+
+def test_captured_update_counts_launches_through_captured_launches(cuda):
+    """The graph's launch counts come from `kernels.ops.CapturedLaunches`
+    around the capture; the training update launches none of the three
+    kernels (the index embedding; the cuda gather has no gradient), so
+    the replays add nothing to the wrappers' counts."""
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS, CapturedLaunches
+
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    graph = _captured_update_on_card(cuda)
+    for _ in range(3):
+        graph()
+    torch.cuda.synchronize()
+    assert isinstance(graph.launches, CapturedLaunches)
+    assert graph.launches.counts == {n: 0 for n in KERNEL_WRAPPERS}
+    assert {n: w.launches for n, w in KERNEL_WRAPPERS.items()} == before
+
+
+def test_a_training_replay_makes_no_host_sync(cuda):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` each replay of
+    the captured update runs without waiting for the card (the schedule's
+    step, the clip and the bias corrections live on the card)."""
+    graph = _captured_update_on_card(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out = graph()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out["loss"]).item()

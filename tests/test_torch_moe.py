@@ -90,6 +90,32 @@ def test_build_buf_slots_and_counts_equal_repro(k):
     assert int((~got[2]).sum()) > 0  # some assignments were dropped
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 6])
+def test_combine_adds_as_a_sequential_index_add(dtype, k):
+    """The combine (each token's k rows added in float32 in the sorted
+    order, rounded once; no atomics, so it repeats itself on the card)
+    gives, bit for bit, what ``index_add_`` gives on the CPU, with drops."""
+    rng = np.random.default_rng(3)
+    T, D, E, C = 40, 24, 8, 4 * k  # about 5k tokens an expert: drops
+    xf = torch.as_tensor(rng.standard_normal((T, D)), dtype=dtype)
+    idx = torch.as_tensor(np.stack([rng.permutation(E)[:k]
+                                    for _ in range(T)]))
+    w = torch.as_tensor(rng.random((T, k)), dtype=torch.float32)
+    _, slot, in_cap, st, sw, _ = TM._build_buf(xf, w, idx, E=E, k=k, C=C)
+    out = torch.as_tensor(rng.standard_normal((E, C, D)) * 4, dtype=dtype)
+    got = TM._combine_local(out, slot, in_cap, st, sw, T=T, E=E, C=C)
+    flat = out.reshape(E * C, D)
+    contrib = (torch.where(in_cap[:, None],
+                           flat[torch.clamp(slot, max=E * C - 1)],
+                           torch.zeros((), dtype=dtype)).to(torch.float32)
+               * sw[:, None]).to(dtype)
+    want = torch.zeros((T, D), dtype=dtype).index_add_(0, st, contrib)
+    assert bool((~in_cap).any())  # some assignments were dropped
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 @pytest.mark.parametrize("name", MOE_ARCHS)
 @pytest.mark.parametrize("dp_shards", [1, 2])
 def test_moe_apply_matches_repro(name, dp_shards):
