@@ -115,8 +115,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    beside the default geometry (8, 8, 2), and the winner's engine within
    ``1e-5 + 1e-5 * |plain|`` of `sell_spmv_plain` / `sell_spmm_plain`.
 10. Sharded engine: `ShardedSpMVEngine` with 4 shards on a 1x1 grid of the
-   card for partitions even, nnz, cost (and cost2d when its bounds take
-   under 30 s; their time is printed) at the banded 1M shape (matmat,
+   card for partitions even, nnz, cost and cost2d (its bounds timed in
+   the engine's build, failing over 30 s) at the banded 1M shape (matmat,
    k = 64) and the PageRank operator (matvec), each against the
    single-device engine at ``1e-5 + 1e-5 * |y|``, with every shard's width,
    padded plan elements, coalesce rate and kernel time beside the single
@@ -201,21 +201,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    so deepseek's update repeats itself too); losses and parameters finite
    (llama4-maverick is left out: its one unit's parameters, gradients and
    moments need ~224 GB).
-13. The sharded training step (no kernel of the three runs here either):
+13. The sharded training update (no kernel of the three runs here either):
    (a) `train()` on a 1x1 NCCL process mesh (`launch.mesh.
    make_process_mesh`), tinyllama-1.1b at full width and depth with phase
-   12 (a)'s seed, batch 8 x 512 and optimizer, 10 steps: every parameter
-   and moment a DTensor placed by `sharding.rules.param_pspecs`; each
-   step's loss within ``1e-5 * |loss|`` of phase 12 (a)'s at the same step
-   (bitwise printed); step ms (median of steps 1-9; the sharded update
-   stays eager, ROADMAP A4), tokens/s and peak device memory beside phase
-   12 (e)'s eager step and (a)'s replay and peak, and what DTensor adds to
-   a step;
+   12 (a)'s seed, batch 8 x 512 and optimizer, 6 steps, the update
+   captured (the default on the card: an eager first step, then replays
+   of one CUDA graph of DTensor's local kernels), then the same run eager
+   (``capture=False``): every parameter and moment a DTensor placed by
+   `sharding.rules.param_pspecs`; every step's loss, grad norm and lr and
+   every local shard of the two runs bitwise, and the 6 losses phase 12
+   (a)'s bitwise; step ms (medians of steps 1-5) eager against a replay
+   beside phase 12 (a)'s unsharded replays of the same steps, the
+   capture's ms and both
+   peaks, with the card's name and power limit;
    (b) on the host's CPU, ``python -m torch.distributed.run
    --nproc-per-node 4 -m repro_torch.launch.train --arch tinyllama-1.1b
    --reduced --mesh 2,2 --device cpu --steps 4``: four gloo ranks of the
    2x2 grid under the machine's torch, `repro`'s JSON printed once with
-   finite losses.
+   finite losses (started first, in the background, beside (a) and (c));
+   (c) every family of phase 12 (f) at its cut on the 1x1 mesh: three
+   eager updates on a side stream, the state put back to the seed's, the
+   update captured and replayed three times: every step's metrics and the
+   final local shards bitwise.
 14. The dry-run (`repro_torch.launch.dryrun`; nothing allocated on the
    card, no kernel launched): (a) every arch x applicable shape (32 cells)
    on a fake 16x16 world and the decode cells (decode_32k, long_500k) on
@@ -270,6 +277,7 @@ sharded CG are printed apart and not summed. The seconds of each phase are
 printed at the end. The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA device.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -277,6 +285,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1754,6 +1763,29 @@ def _plan_line(eng):
             elems / (wide * eng.block_rows))
 
 
+@contextlib.contextmanager
+def _timed_bounds():
+    """The seconds `core.dist.ShardedSpMVEngine` spends in `shard_bounds`
+    while the context is open (a list of one number), timed inside the
+    engine's own build rather than by computing the bounds twice."""
+    from repro_torch.core import dist
+
+    seconds, real = [0.0], dist.shard_bounds
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds[0] += time.perf_counter() - t0
+
+    dist.shard_bounds = timed
+    try:
+        yield seconds
+    finally:
+        dist.shard_bounds = real
+
+
 def sharded_path(device, smi):
     """Phase 10: ShardedSpMVEngine with 4 shards on one card for each
     partition at the banded (matmat, k = 64) and PageRank (matvec) 1M
@@ -1768,7 +1800,6 @@ def sharded_path(device, smi):
     from repro_torch.core.dist import ShardedSpMVEngine
     from repro_torch.core.engine import SpMVEngine
     from repro_torch.core.faults import FaultPlan
-    from repro_torch.core.partition import shard_bounds
     from repro_torch.core.runtime import normalize_to_sell
     from repro_torch.launch.mesh import parse_mesh_spec
 
@@ -1797,19 +1828,18 @@ def sharded_path(device, smi):
               f"{elems}, wide accesses {wide}, coalesce rate {rate:.2f}, "
               f"kernel {single_ms:.4f} ms, {'matvec' if k == 1 else 'matmat'}"
               f" {whole_ms:.4f} ms")
-        strategies = ["even", "nnz", "cost"]
-        t0 = time.perf_counter()
-        shard_bounds(sell, SHARDS, partition="cost2d")
-        cost2d_s = time.perf_counter() - t0
-        if cost2d_s < COST2D_LIMIT_S:
-            strategies.append("cost2d")
-        ran = "run" if cost2d_s < COST2D_LIMIT_S else "not run"
-        print(f"{name}: cost2d bounds at {sell.n_rows} rows in "
-              f"{cost2d_s:.2f}s ({ran}, limit {COST2D_LIMIT_S:.0f}s)")
-        for strategy in strategies:
+        for strategy in ("even", "nnz", "cost", "cost2d"):
             t0 = time.perf_counter()
-            eng = ShardedSpMVEngine(sell, mesh=mesh, n_shards=SHARDS,
-                                    partition=strategy)
+            with _timed_bounds() as bounds_s:
+                eng = ShardedSpMVEngine(sell, mesh=mesh, n_shards=SHARDS,
+                                        partition=strategy)
+            if strategy == "cost2d":
+                print(f"{name}: cost2d bounds at {sell.n_rows} rows in "
+                      f"{bounds_s[0]:.2f}s (in the engine's build; limit "
+                      f"{COST2D_LIMIT_S:.0f}s)")
+                if bounds_s[0] > COST2D_LIMIT_S:
+                    raise AssertionError(f"{name}: cost2d bounds took "
+                                         f"{bounds_s[0]:.2f}s")
             _reset_launches()
             got = eng.matvec(rhs) if k == 1 else eng.matmat(rhs)
             torch.cuda.synchronize()
@@ -3106,7 +3136,8 @@ def _bytes_equal_bool(a, b):
     import torch
 
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def _family_run(model, cfg, device, capture, steps):
@@ -3245,92 +3276,250 @@ def training_path(device, smi):
     return launches
 
 
-# Phase 13: the sharded step on a 1x1 NCCL mesh against phase 12 (a)
+# Phase 13: the sharded update on a 1x1 NCCL mesh, captured against eager
 # phase 12 (a)'s losses, step ms, peak and the bytes of its parameters,
 # optimizer state and batch, and (c)'s peaks by remat, filled there
 PHASE12 = {}
-SHARD_STEPS = 10
+SHARD_STEPS = 6  # a captured and an eager run of (a), each this long
 GRID_ARGV = ["--arch", TRAIN_ARCH, "--reduced", "--mesh", "2,2", "--device",
              "cpu", "--steps", "4"]
 
 
+def _local_bytes(tree):
+    """{name: this rank's shard} of a tree's DTensors (parameters or
+    moments), on the card."""
+    from repro_torch.optim.tree import named_tensors
+
+    return {n: t.detach().to_local() for n, t in named_tensors(tree).items()}
+
+
+def _mesh_state(params, opt):
+    return {"params": _local_bytes(params), "mu": _local_bytes(opt.mu),
+            "nu": _local_bytes(opt.nu)}
+
+
+def _mesh_state_equal(got, want):
+    """Whether every parameter's and moment's local shard is bitwise the
+    same in two `_mesh_state`s."""
+    return all(_bytes_equal_bool(got[part][n], t)
+               for part in want for n, t in want[part].items())
+
+
+def _sharded_train(model, cfg, device, capture):
+    """(a)'s `train()` on a 1x1 NCCL process mesh (made here), eager or
+    captured: (train's outputs, peak device memory above the start)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import Runtime
+    from repro_torch.train.loop import TrainConfig, train
+
+    mesh = make_process_mesh(1, 1)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = train(model, mesh=mesh, rt=Runtime(), opt_cfg=_train_opt(),
+                tcfg=TrainConfig(total_steps=SHARD_STEPS, log_every=1),
+                data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH),
+                device=device, capture=capture)
+    torch.cuda.synchronize(device)
+    out["mesh"] = mesh
+    return out, torch.cuda.max_memory_allocated(device) - base
+
+
 def sharded_full(device, smi):
     """(a): `train()` on a 1x1 NCCL process mesh at full width and depth,
-    against phase 12 (a)."""
+    the update captured (the default on the card), then the same run eager
+    from the same seed (``capture=False``): every step's loss, grad norm
+    and lr and every parameter's and moment's local shard bitwise, and the
+    losses phase 12 (a)'s; step ms eager against a replay."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.models import Runtime, build_model
-    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.models import build_model
     from repro_torch.sharding.dtensor import is_dtensor
-    from repro_torch.train.loop import TrainConfig, train
 
     if len(PHASE12.get("losses", ())) < SHARD_STEPS:
         raise AssertionError(f"(a) phase 12 (a) left {PHASE12}")
     cfg = get_arch(TRAIN_ARCH)
     model = build_model(cfg)
+    runs = {}
     try:
-        mesh = make_process_mesh(1, 1)
+        for capture in (None, False):  # in turns: captured, then eager
+            out, peak = _sharded_train(model, cfg, device, capture)
+            params, opt = out["params"], out["opt_state"]
+            tensors = list(params.parameters()) + list(
+                opt.mu.parameters()) + list(opt.nu.parameters())
+            if not all(is_dtensor(t) for t in tensors):
+                raise AssertionError("(a) a parameter or moment is not a "
+                                     "DTensor")
+            runs["eager" if capture is False else "captured"] = dict(
+                out=out, peak=peak, state=_mesh_state(params, opt),
+                n=len(tensors))
+            del out, params, opt, tensors
+        mesh = runs["captured"]["out"]["mesh"]
         print(f"(a) process mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
-              f" on {mesh.device_type}, backend "
-              f"{dist.get_backend()}, world {dist.get_world_size()}")
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        out = train(model, mesh=mesh, rt=Runtime(),
-                    opt_cfg=OptConfig(lr=1e-3, warmup_steps=5,
-                                      total_steps=TRAIN_STEPS),
-                    tcfg=TrainConfig(total_steps=SHARD_STEPS, log_every=1),
-                    data_cfg=DataConfig(vocab_size=cfg.vocab_size,
-                                        seq_len=TRAIN_SEQ,
-                                        global_batch=TRAIN_BATCH),
-                    device=device)
-        peak = torch.cuda.max_memory_allocated(device)
-        params, opt = out["params"], out["opt_state"]
-        tensors = list(params.parameters()) + list(opt.mu.parameters()) \
-            + list(opt.nu.parameters())
-        if not all(is_dtensor(t) for t in tensors):
-            raise AssertionError("(a) a parameter or moment is not a DTensor")
-        placed = {repr(tuple(p.placements)) for p in params.parameters()}
-        hist = out["history"]
-        want = PHASE12["losses"][:SHARD_STEPS]
-        got = [h["loss"] for h in hist]
-        for h, w, wn in zip(hist, want, PHASE12["grad_norms"]):
-            print(f"(a) step {h['step']:2d}: loss {h['loss']!r} (phase 12 "
-                  f"{w!r}), grad_norm {h['grad_norm']!r} (phase 12 "
-                  f"{wn!r}), {h['sec'] * 1e3:.1f} ms")
-        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
-        if len(got) != SHARD_STEPS or not worst <= LOSS_RTOL:
-            raise AssertionError(f"(a) losses {got} against phase 12's "
-                                 f"{want}")
-        step_ms = float(np.median([h["sec"] for h in hist[1:]])) * 1e3
-        base = PHASE12["step_ms"]
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        print(f"(a) {len(tensors)} DTensors (parameters and moments) on "
-              f"placements {sorted(placed)}; the {SHARD_STEPS} losses within "
-              f"{worst:.3e} relative of phase 12 (a)'s (bitwise: "
-              f"{got == want}); first step {hist[0]['sec'] * 1e3:.1f} ms "
-              f"(DTensor's sharding propagation warms up)")
-        print(f"(a) sharded step on 1x1 (eager, ROADMAP A4): median "
-              f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s, "
-              f"peak device memory {peak} B; phase 12 (e)'s eager step on "
-              f"the same card: {base:.1f} ms, {tokens / base * 1e3:.0f} "
-              f"tokens/s (a replay of (a)'s captured update "
-              f"{PHASE12['replay_ms']:.1f} ms), (a)'s peak {PHASE12['peak']} "
-              f"B; DTensor adds {step_ms - base:.1f} ms a step "
-              f"({step_ms / base:.3f}x) ({smi})")
+              f" on {mesh.device_type}, backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    del out, params, opt, tensors
+    cap, eag = runs["captured"], runs["eager"]
+    if not cap["out"]["captured"] or eag["out"]["captured"]:
+        raise AssertionError(f"(a) captured {cap['out']['captured']}, eager "
+                             f"run captured {eag['out']['captured']}")
+    hist, ehist = cap["out"]["history"], eag["out"]["history"]
+    kinds = [h["kind"] for h in hist]
+    if kinds != ["step"] + ["replay"] * (SHARD_STEPS - 1):
+        raise AssertionError(f"(a) step kinds {kinds}")
+    metrics = [[(h["loss"], h["grad_norm"], h["lr"]) for h in r]
+               for r in (hist, ehist)]
+    want = PHASE12["losses"][:SHARD_STEPS]
+    for h, e, w in zip(hist, ehist, want):
+        print(f"(a) step {h['step']:2d}: loss {h['loss']!r} ({h['kind']}; "
+              f"eager {e['loss']!r}, phase 12 {w!r}), grad_norm "
+              f"{h['grad_norm']!r} (eager {e['grad_norm']!r}), "
+              f"{h['sec'] * 1e3:.1f} ms ({e['sec'] * 1e3:.1f} ms eager)")
+    if metrics[0] != metrics[1]:
+        raise AssertionError(f"(a) captured metrics {metrics[0]} against "
+                             f"eager {metrics[1]}")
+    if [h["loss"] for h in hist] != want:
+        raise AssertionError(f"(a) losses {[h['loss'] for h in hist]} "
+                             f"against phase 12 (a)'s {want}")
+    if not _mesh_state_equal(cap["state"], eag["state"]):
+        raise AssertionError("(a) the captured run's parameters and moments "
+                             "differ from the eager run's")
+    replay_ms = float(np.median([h["sec"] for h in hist[1:]])) * 1e3
+    eager_ms = float(np.median([h["sec"] for h in ehist[1:]])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    base = PHASE12["replay_ms"]
+    print(f"(a) {cap['n']} DTensors (parameters and moments); captured "
+          f"against eager: every step's loss, grad norm and lr and every "
+          f"local shard bitwise; the {SHARD_STEPS} losses phase 12 (a)'s "
+          f"bitwise; first step {hist[0]['sec'] * 1e3:.1f} ms (eager, the "
+          f"warm-up), capture {cap['out']['capture_seconds'] * 1e3:.1f} ms")
+    print(f"(a) sharded step on 1x1: a replay of the captured update median "
+          f"{replay_ms:.1f} ms ({tokens / replay_ms * 1e3:.0f} tokens/s), "
+          f"eager {eager_ms:.1f} ms ({tokens / eager_ms * 1e3:.0f} tokens/s, "
+          f"{eager_ms / replay_ms:.3f}x); phase 12 (a)'s unsharded replay "
+          f"{base:.1f} ms (the sharded replay {replay_ms / base:.3f}x it), "
+          f"eager {PHASE12['step_ms']:.1f} ms; peak device memory captured "
+          f"{cap['peak']} B, eager {eag['peak']} B "
+          f"({cap['peak'] / eag['peak']:.4f}x; phase 12 (a) "
+          f"{PHASE12['peak']} B) ({smi})")
+    del runs, cap, eag
     _fresh_caches()
 
 
-def grid_on_host():
+def _mesh_family(model, cfg, device, mesh):
+    """(c): a family's cut model on the 1x1 mesh from seed 12's state on
+    one batch: `FAMILY_TRAIN_STEPS` eager updates (`update_over_buffers`)
+    on a side stream, the first the capture's warm-up, then the state put
+    back to the seed's, the update captured there (`core.capture`, as
+    `train` does on a mesh) and replayed as many times. Returns each way's
+    metrics a step, whether the final states are bitwise equal, and the
+    seconds of an eager step and of a replay."""
+    import functools
+
+    import torch
+
+    from repro_torch.core.capture import CapturedStep, on_side_stream
+    from repro_torch.models import Runtime, make_input_batch
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.sharding.dtensor import distribute, place_tree
+    from repro_torch.sharding.rules import batch_pspecs, to_shardings
+    from repro_torch.train.loop import METRICS, TrainConfig, \
+        update_over_buffers
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = model.init(gen, device=device,
+                        place=functools.partial(place_tree, mesh=mesh))
+    batch = make_input_batch(cfg, FAMILY_BATCH, FAMILY_SEQ, gen,
+                             device=device)
+    sh = to_shardings(batch_pspecs(batch, mesh), mesh)
+    batch = {k: distribute(v, sh[k]) for k, v in batch.items()}
+    opt = init_opt_state(params)
+    step = update_over_buffers(model, _train_opt(), Runtime(),
+                               TrainConfig(), params, opt, None, batch)
+    seed = _local_bytes(params)
+    seed = {n: t.clone() for n, t in seed.items()}
+    side = torch.cuda.Stream(device)
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        return [float(out[k]) for k in METRICS], time.perf_counter() - t0
+
+    eager = [timed(lambda: on_side_stream(side, step))
+             for _ in range(FAMILY_TRAIN_STEPS)]
+    want = {part: {n: t.clone() for n, t in ts.items()}
+            for part, ts in _mesh_state(params, opt).items()}
+    with torch.no_grad():
+        for n, t in _local_bytes(params).items():
+            t.copy_(seed[n])
+        for part in (opt.mu, opt.nu):
+            for t in _local_bytes(part).values():
+                t.zero_()
+        opt.step.zero_()
+    del seed
+    graph = CapturedStep(step, side, f"(c) {cfg.name}: the sharded update",
+                         process_group=True)
+    replays = [timed(graph) for _ in range(FAMILY_TRAIN_STEPS)]
+    same = _mesh_state_equal(_mesh_state(params, opt), want)
+    return ([m for m, _ in eager], [m for m, _ in replays], same,
+            eager[-1][1], replays[-1][1])
+
+
+def sharded_families(device, smi):
+    """(c): every family of phase 12 (f) at its cut on the 1x1 NCCL mesh,
+    `FAMILY_TRAIN_STEPS` captured updates against as many eager ones from
+    the same state: every step's metrics and the final parameters and
+    moments bitwise, or raise."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import build_model
+
+    try:
+        mesh = make_process_mesh(1, 1)
+        for name in TRAIN_FAMILIES:
+            full = get_arch(name)
+            cfg = _cut(full, **FAMILY_CUTS[name])
+            t0 = time.perf_counter()
+            em, cm, same, es, cs = _mesh_family(build_model(cfg), cfg,
+                                                device, mesh)
+            secs = time.perf_counter() - t0
+            if not np.isfinite([v for m in em + cm for v in m]).all():
+                raise AssertionError(f"(c) {name}: metrics {em} / {cm}")
+            if cm != em or not same:
+                raise AssertionError(f"(c) {name}: captured metrics {cm} "
+                                     f"against eager {em}; state bitwise "
+                                     f"{same}")
+            print(f"(c) {name} on 1x1: layers {cfg.n_layers} of "
+                  f"{full.n_layers}; {FAMILY_TRAIN_STEPS} steps eager and "
+                  f"captured in {secs:.2f} s, losses "
+                  + ", ".join(f"{m[0]:.4f}" for m in em)
+                  + "; every step's metrics and the parameters and moments "
+                  f"bitwise; a step {es * 1e3:.3f} ms eager, "
+                  f"{cs * 1e3:.3f} ms a replay ({smi})")
+            _fresh_caches()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def start_grid_on_host():
     """(b): the 2x2 grid as four gloo ranks on the host's CPU, through
-    ``torch.distributed.run`` and the launcher."""
+    ``torch.distributed.run`` and the launcher, started in the background
+    (it needs no card: it runs while (a) and (c) use the card); returns
+    what `finish_grid_on_host` reads."""
     from repro_torch.launch.mesh import free_port
 
     argv = [sys.executable, "-m", "torch.distributed.run",
@@ -3338,41 +3527,61 @@ def grid_on_host():
             "-m", "repro_torch.launch.train"] + GRID_ARGV
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, capture_output=True, text=True, timeout=300,
-                          cwd=ROOT, env=env)
+    # files, not pipes: nothing reads them until (a) and (c) are done
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    return subprocess.Popen(argv, stdout=logs[0], stderr=logs[1], text=True,
+                            cwd=ROOT, env=env), logs, time.perf_counter()
+
+
+def finish_grid_on_host(started):
+    """(b)'s result: its exit, its JSON printed once, finite losses."""
+    proc, logs, t0 = started
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     secs = time.perf_counter() - t0
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
+    for f in logs:
+        f.close()
     if proc.returncode != 0:
-        raise AssertionError(f"(b) exit {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
-    if proc.stdout.count('"history"') != 1:
-        raise AssertionError(f"(b) printed {proc.stdout!r}")
-    out = json.loads(proc.stdout[proc.stdout.index("{"):])
+        raise AssertionError(f"(b) exit {proc.returncode}: {stderr[-3000:]}")
+    if stdout.count('"history"') != 1:
+        raise AssertionError(f"(b) printed {stdout!r}")
+    out = json.loads(stdout[stdout.index("{"):])
     losses = [h["loss"] for h in out["history"]]
     if out.get("mesh") != {"data": 2, "model": 2} or \
             not np.isfinite(losses).all():
         raise AssertionError(f"(b) {out}")
     print(f"(b) CPU (the host, 4 gloo ranks): python -m torch.distributed.run"
           f" --nproc-per-node 4 -m repro_torch.launch.train "
-          f"{' '.join(GRID_ARGV)}: exit 0 in {secs:.1f} s, the JSON printed "
-          f"once, mesh {out['mesh']}, losses {losses}, "
-          f"{out['tokens_per_s']:.0f} tokens/s on the CPU")
+          f"{' '.join(GRID_ARGV)}: exit 0 in {secs:.1f} s (beside (a) and "
+          f"(c)), the JSON printed once, mesh {out['mesh']}, losses "
+          f"{losses}, {out['tokens_per_s']:.0f} tokens/s on the CPU")
 
 
 def sharded_training_path(device, smi):
-    """Phase 13: (a) the sharded step on a 1x1 NCCL mesh at full width and
-    depth against phase 12 (a), (b) the 2x2 grid on the host's CPU. Driven
-    with the launch counts set to 0: returns them (the path launches
-    none)."""
+    """Phase 13: (a) the sharded update on a 1x1 NCCL mesh at full width
+    and depth, captured against eager and against phase 12 (a), (b) the 2x2
+    grid on the host's CPU, (c) every family on the 1x1 mesh, captured
+    against eager. Driven with the launch counts set to 0: returns them
+    (the path launches none)."""
     import torch
 
-    _phase(f"13. sharded training: {TRAIN_ARCH} on a 1x1 NCCL process mesh "
-           f"against phase 12, the 2x2 grid on the host ({smi})")
+    _phase(f"13. sharded training: {TRAIN_ARCH} on a 1x1 NCCL process mesh, "
+           f"the update captured against eager and phase 12, the 2x2 grid "
+           f"on the host, every family captured on 1x1 ({smi})")
     print(f"torch {torch.__version__}")
     _fresh_caches()
     _reset_launches()
-    sharded_full(device, smi)
-    grid_on_host()
+    grid = start_grid_on_host()
+    try:
+        sharded_full(device, smi)
+        sharded_families(device, smi)
+    finally:
+        finish_grid_on_host(grid)
     launches = _read_launches()
     if any(launches.values()):
         raise AssertionError(f"the sharded training path launched "

@@ -126,7 +126,13 @@ def _tree_map(fn, tree):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+    return tree if tree is None or _is_row(tree) else fn(tree)
+
+
+def _is_row(value) -> bool:
+    from repro_torch.optim.tree import Row
+
+    return isinstance(value, Row)
 
 
 def _first_leaf(tree):
@@ -169,13 +175,23 @@ def _at(tree, path):
 
 
 def _with(tree, path, value):
-    """A shallow copy of `tree` with the subtree at `path` replaced."""
-    out = dict(tree)
+    """A shallow copy of `tree` (dicts, lists) with the subtree at `path`
+    replaced."""
+    out = list(tree) if isinstance(tree, list) else dict(tree)
     if len(path) == 1:
         out[path[0]] = value
     else:
         out[path[0]] = _with(tree[path[0]], path[1:], value)
     return out
+
+
+def _row_path(prefixes, path: tuple, i: int) -> tuple:
+    """Where layer `i`'s tensor of the stacked leaf at `path` sits in the
+    unstacked tree (one stacked axis after its subtree's path)."""
+    for prefix in prefixes:
+        if path[:len(prefix)] == prefix:
+            return path[:len(prefix)] + (i,) + path[len(prefix):]
+    raise ValueError(f"{path} lies in no stacked subtree")
 
 
 def _tensor_from_numpy(a, device) -> torch.Tensor:
@@ -212,15 +228,30 @@ def model_params_from_numpy(cfg, tree, device=None, shardings=None):
     `shardings` ({port tensor name: `sharding.rules.Sharding`}) places the
     parameters on a process mesh as DTensors (every rank passes the same
     `tree` and keeps its shards, cut on the host: only they reach
-    `device`)."""
+    `device`). A leaf `shardings` names as ``stacked.<keystr>`` (FSDP's
+    stacked parameter, `optim.tree.stack_leaves`) is carried across as it
+    is, one tensor of `repro`'s stacked shape, each layer's entry a `Row`
+    of it."""
     from repro_torch.models.transformer import FAMILY_CLASSES
+    from repro_torch.optim.tree import STACKED, Row, _key_path
     from repro_torch.sharding.dtensor import distribute_module
 
     device = resolve_device(device)
-    for path, levels in _stacked_paths(cfg, tree).items():
+    keep = sorted(n.split(".", 1)[1] for n in shardings or ()
+                  if n.startswith(STACKED + "."))
+    stacks = {key: _at(tree, _key_path(key)) for key in keep}
+    prefixes = _stacked_paths(cfg, tree)
+    for path, levels in prefixes.items():
         tree = _with(tree, path, _unstack(_at(tree, path), levels))
+    for key, arr in stacks.items():
+        for i in range(arr.shape[0]):  # the stacked leaf: one axis
+            tree = _with(tree, _row_path(prefixes, _key_path(key), i),
+                         Row(key, i))
     at = device if shardings is None else torch.device("cpu")
     tensors = _tree_map(lambda a: _tensor_from_numpy(a, at), tree)
+    if stacks:
+        tensors[STACKED] = {k: _tensor_from_numpy(a, at)
+                            for k, a in stacks.items()}
     module = FAMILY_CLASSES[cfg.family](cfg, tensors)
     return module if shardings is None else distribute_module(
         module, shardings, device=device)
@@ -230,9 +261,18 @@ def model_params_to_numpy(cfg, module):
     """The inverse of `model_params_from_numpy`: `repro`'s pytree layout
     (stacked subtrees restacked) with numpy leaves; bfloat16 leaves as
     ml_dtypes' bfloat16 where it is installed, else widened to float32.
-    DTensors are gathered: on a process mesh every rank calls this."""
+    DTensors are gathered: on a process mesh every rank calls this. A
+    stacked parameter (`optim.tree.stack_leaves`) is its leaf as it is."""
+    from repro_torch.optim.tree import STACKED, _key_path
+
     tree = _tree_map(_tensor_to_numpy, module.to_tree())
-    for path, levels in _stacked_paths(cfg, tree).items():
+    stacks = tree.pop(STACKED, None) or {}
+    prefixes = _stacked_paths(cfg, tree)
+    for key, arr in stacks.items():  # each layer's row, restacked below
+        for i in range(arr.shape[0]):
+            tree = _with(tree, _row_path(prefixes, _key_path(key), i),
+                         arr[i])
+    for path, levels in prefixes.items():
         tree = _with(tree, path, _restack(_at(tree, path), levels))
     return tree
 

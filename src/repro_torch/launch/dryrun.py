@@ -20,7 +20,9 @@ process, ``fake_tensor.init_gpu_context``):
   * ``collectives``: the bytes of each collective's result on rank 0 by
     kind, under `repro`'s keys (``all-reduce``, ``all-gather``,
     ``reduce-scatter``, ``all-to-all``, ``collective-permute``; a
-    ``broadcast``, which `repro`'s HLO has no name for, under its own),
+    ``broadcast`` and a ``reduce`` (a stacked parameter's row read,
+    `sharding.dtensor.stack_row`), which `repro`'s HLO has no names for,
+    under their own),
     with ``total_bytes`` and ``op_count``: DTensor's redistributions
     (``_c10d_functional``) and the port's own ``torch.distributed`` calls
     (``c10d``) alike;
@@ -80,7 +82,8 @@ COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute")
 
 # the collective ops the steps issue (``_c10d_functional``: DTensor's
-# redistributions; ``c10d``: the port's own ``dist.all_reduce``;
+# redistributions; ``c10d``: the port's own ``dist.all_reduce``,
+# ``broadcast`` and ``reduce``;
 # ``_dtensor``: a shard-to-shard all-to-all) -> `repro`'s HLO name. Any other
 # op of these namespaces but the ones that move nothing raises: a collective
 # named otherwise (another torch) is never left out of the count.
@@ -89,11 +92,16 @@ _KIND_OF = {
     "all_gather_into_tensor": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast_": "broadcast", "reduce_": "reduce",
 }
 _MOVE_NOTHING = ("wait_tensor", "_wrap_tensor_autograd", "barrier")
 _LIFTS = (torch.ops.aten.lift_fresh, torch.ops.aten.lift_fresh_copy)
 _SYNCS = (torch.ops._c10d_functional.wait_tensor,)
-_DTENSOR_CODE = "/torch/distributed/tensor/"
+# DTensor's code, and the device mesh's (a sub-mesh or a flattened one
+# made on first use, `sharding.dtensor.stack_row`'s group)
+_DTENSOR_CODE = ("/torch/distributed/tensor/",
+                 "/torch/distributed/device_mesh.py",
+                 "/torch/distributed/_mesh_layout.py")
 _PORT_CODE = "/repro_torch/"
 _THIS_FILE = "/repro_torch/launch/dryrun.py"
 _PORT_OPS = "repro_torch"  # the port's own operators (the sLSTM scan)
@@ -169,7 +177,7 @@ def _from_dtensor() -> bool:
     frame = sys._getframe(2)
     while frame is not None:
         name = frame.f_code.co_filename
-        if _DTENSOR_CODE in name:
+        if any(code in name for code in _DTENSOR_CODE):
             return True
         if _PORT_CODE in name and not name.endswith(_THIS_FILE):
             return False
@@ -269,7 +277,9 @@ class StepCounter:
                 written = [a for a, s in zip(args, func._schema.arguments)
                            if s.alias_info is not None
                            and s.alias_info.is_write]
-                result = tensors_of(written) or outs
+                # ``reduce_`` marks no argument written and returns only
+                # its work: its tensors are what it moves
+                result = tensors_of(written) or outs or tensors_of(args[0])
                 n = float(sum(_nbytes(t) for t in result))
                 self.collectives[kind] = self.collectives.get(kind, 0.0) + n
                 self.collective_ops += 1
@@ -468,12 +478,18 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     from repro_torch.sharding import dtensor
     from repro_torch.sharding.rules import batch_pspecs, cache_pspecs, \
         cache_stacked, param_pspecs, tensor_pspecs, \
-        to_shardings, zero1_tensor_pspecs
+        to_shardings, zero1_stacked_pspecs, zero1_tensor_pspecs
     from repro_torch.train.steps import make_prefill_step, \
         make_serve_step, make_train_step
 
     model = build_model(cfg)
     params = _param_shapes(cfg)  # on meta
+    if fsdp and mesh is not None:
+        # FSDP holds a leaf that no per-layer placement holds in `repro`'s
+        # bytes stacked, as `repro` does (ROADMAP C27): one tensor on its
+        # fold, each layer reading its row (`dtensor.stack_row`)
+        params = _stacked_param_shapes(cfg, tuple(sorted(
+            zero1_stacked_pspecs(params, mesh, expert_2d=expert_2d))))
     tree = params.to_tree()
     train = cell.kind == "train"
 
@@ -489,7 +505,8 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
     if mesh is None:
         p_sh = m_sh = None
     else:
-        # FSDP parameters: `repro`'s fold, per layer
+        # FSDP parameters: `repro`'s fold, per layer (a stacked leaf's on
+        # its layer axis)
         unfolded = shardings(param_pspecs(params, mesh, expert_2d=expert_2d),
                              params)
         p_sh = to_shardings(zero1_tensor_pspecs(
@@ -557,6 +574,16 @@ def step_inputs(cfg: ArchConfig, cell: ShapeCell, rt: Runtime, *, mesh=None,
 def _param_shapes(cfg: ArchConfig):
     """`models.param_shapes`, once an arch (`step_inputs` only reads it)."""
     return param_shapes(cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _stacked_param_shapes(cfg: ArchConfig, keys: tuple):
+    """`_param_shapes` with the leaves `keys` held stacked
+    (`optim.tree.stack_leaves`), once an arch and set of leaves."""
+    from repro_torch.optim.tree import stack_leaves
+
+    params = _param_shapes(cfg)
+    return stack_leaves(params, keys) if keys else params
 
 
 def default_runtime(cell: ShapeCell) -> Runtime:

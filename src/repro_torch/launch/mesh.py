@@ -135,7 +135,16 @@ def init_process_group(world: int, *, device=None) -> None:
     yet: from the environment ``torch.distributed.run`` sets, or, for one
     rank alone, on a free port of 127.0.0.1. NCCL on the card (each rank
     takes card ``LOCAL_RANK`` as its current device), gloo with
-    ``device="cpu"``."""
+    ``device="cpu"``.
+
+    An NCCL group is started with asynchronous error handling off
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` unless the environment sets it),
+    as PyTorch's CUDA-graph notes ask where collectives are captured:
+    `train` captures the sharded update, and a captured collective runs at
+    each replay outside the watchdog's view, so its handler must not tear
+    the communicators down under the graph. Communicators are made at each
+    group's first collective (no ``device_id``): the update's eager
+    warm-up makes every one its capture uses."""
     import torch.distributed as dist
 
     backend = _backend(device)
@@ -144,6 +153,8 @@ def init_process_group(world: int, *, device=None) -> None:
         torch.cuda.set_device(local % torch.cuda.device_count())
     if dist.is_initialized():
         return
+    if backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     if "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend)
     elif world == 1:

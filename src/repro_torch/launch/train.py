@@ -4,13 +4,14 @@
 Trains on the card unless ``--device cpu`` is given (without a card and
 without it, it raises). On the card `train` captures the update as one
 CUDA graph after its first, eager step and replays it a step (`repro` jits
-it); on the CPU and on a process mesh every step runs eagerly. ``--embed-backend`` takes the port's gather
+it), on one card or on an NCCL process mesh; on the CPU and on a gloo
+mesh every step runs eagerly. ``--embed-backend`` takes the port's gather
 backends: ``index`` (the default, `repro`'s ``jnp``), ``coalesced``,
 ``cuda`` (`repro`'s ``pallas``; it has no gradient and raises under
 training, as ``pallas`` does) or ``auto``. Prints `repro`'s JSON
 (``history``, ``wall_seconds``) with the tokens per second over the whole
-run, the peak device memory (null on the CPU) and whether the update was
-captured.
+run, the peak device memory (null on the CPU), whether the update was
+captured and the capture's seconds (null when it was not).
 
 ``--mesh data,model`` trains sharded on a process mesh of that shape, one
 rank a process, started by ``python -m torch.distributed.run
@@ -112,6 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         if device.type == "cuda" else None,
         "device": str(device),
         "captured": out["captured"],
+        "capture_seconds": out["capture_seconds"],
     }
     if mesh is None:
         print(json.dumps(summary, indent=2))

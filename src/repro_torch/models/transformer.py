@@ -42,6 +42,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
+from repro_torch.optim.tree import STACKED, Row
 from repro_torch.sharding.dtensor import is_dtensor, like, shard_on
 from . import layers as L
 from . import moe as M
@@ -114,18 +115,34 @@ class ParamDict(nn.Module):
     def __init__(self, tree: Optional[dict] = None):
         super().__init__()
         self._names: List[str] = []
+        self._rows: Dict[str, Row] = {}
         for name, value in (tree or {}).items():
             self._names.append(name)
-            if torch.is_tensor(value):
+            if isinstance(value, Row):
+                self._rows[name] = value
+            elif torch.is_tensor(value):
                 self.register_parameter(name, nn.Parameter(value))
             else:
                 self.add_module(name, None if value is None
                                 else _as_module(value))
 
     def __getitem__(self, name: str):
+        """The entry `name`; a `Row` of a stacked parameter is read here
+        (`sharding.dtensor.stack_row`), so a layer's code reads a stacked
+        leaf as it reads its own tensor."""
+        row = self._rows.get(name)
+        if row is None:
+            return self.entry(name)
+        from repro_torch.sharding.dtensor import stack_row
+
+        return stack_row(self.__dict__["_stacks"][row.key], row.index)
+
+    def entry(self, name: str):
+        """The entry `name` as held: a parameter, a subtree, None, or the
+        `Row` of a stacked parameter (unread)."""
         if name not in self._names:
             raise KeyError(name)
-        return getattr(self, name)
+        return self._rows.get(name) or getattr(self, name)
 
     def __contains__(self, name) -> bool:
         return name in self._names
@@ -142,11 +159,13 @@ class ParamDict(nn.Module):
         return type(self)(tree)
 
     def to_tree(self) -> dict:
-        """The nested dict of tensors (and lists, and None) this holds."""
+        """The nested dict of tensors (and lists, None and `Row`s) this
+        holds."""
         out = {}
-        for name, value in self.items():
-            if value is None:
-                out[name] = None
+        for name in self._names:
+            value = self.entry(name)
+            if value is None or isinstance(value, Row):
+                out[name] = value
             elif isinstance(value, nn.Parameter):
                 out[name] = value.data
             else:
@@ -231,6 +250,11 @@ class _Family(ParamDict):
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__(tree)
         self.cfg = cfg
+        if STACKED in self:  # bind each layer's rows to the stacked leaves
+            stacks = self[STACKED]
+            for module in self.modules():
+                if isinstance(module, ParamDict) and module._rows:
+                    module.__dict__["_stacks"] = stacks
 
     def like(self, tree: dict) -> "_Family":
         return type(self)(self.cfg, tree)

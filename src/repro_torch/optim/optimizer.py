@@ -11,7 +11,10 @@ structure (for a family module, a module of its class); on a process mesh
 they are DTensors on their parameters' layouts, or on ZeRO-1's
 (`zero1_opt_state`: `repro`'s fold of the DP axes, per layer, and a leaf
 that no per-layer placement holds in `repro`'s bytes kept stacked, as
-`repro` holds it)."""
+`repro` holds it). A parameter held stacked (FSDP, `optim.tree.
+stack_leaves`) is one tensor of its leaf, its moments stacked too; where
+they lie on another layout than the parameter's, the update runs on
+theirs."""
 from __future__ import annotations
 
 import dataclasses
@@ -196,11 +199,19 @@ def _adamw_update(cfg, params, grads, state, grad_scale):
         for name in leaf.names:
             p, m, v = P[name], M[name], V[name]
             g = G[name].to(torch.float32) * scale
+            pf = p.to(torch.float32)
+            # FSDP's stacked parameter on the fold, its moments on the
+            # rules' layout (`repro`'s bytes): the update on the moments'
+            moved = is_dtensor(m) and tuple(m.placements) != \
+                tuple(p.placements)
+            if moved:
+                g, pf = (redistribute(t, m.placements) for t in (g, pf))
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
             delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-                + cfg.weight_decay * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - lr * delta)
+                + cfg.weight_decay * pf
+            new = pf - lr * delta
+            p.copy_(redistribute(new, p.placements) if moved else new)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 

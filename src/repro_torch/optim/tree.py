@@ -16,16 +16,42 @@ leaf in `repro`'s order and name each leaf as `jax.tree_util.keystr` does:
     stacked axes' sizes;
   * `map_tree(fn, tree, *others)`: a tree of `tree`'s structure (a module
     of its class, or nested dicts and lists) whose tensors are
-    ``fn(t, *others_t)``, matched by name (`map_named`: ``fn(name, t)``).
+    ``fn(t, *others_t)``, matched by name (`map_named`: ``fn(name, t)``);
+  * `stack_leaves(module, keys)`: a family module with some of `repro`'s
+    leaves held as `repro` holds them, one stacked tensor a leaf under
+    ``stacked[keystr]`` (named ``stacked.<keystr>``), each layer's entry a
+    `Row` of it (FSDP where no per-layer placement holds `repro`'s bytes,
+    ROADMAP C27). Such a leaf is one tensor with no stacked axes here.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core.interop import _stacked_paths
+
+
+STACKED = "stacked"  # a family's entry of stacked parameters, by keystr
+
+
+@dataclasses.dataclass(frozen=True)
+class Row:
+    """A layer's entry that is row `index` of the family's stacked
+    parameter ``stacked[key]``: the layer reads it through
+    `sharding.dtensor.stack_row` (`models.transformer.ParamDict`)."""
+
+    key: str
+    index: int
+
+
+def _key_path(key: str) -> tuple:
+    """The path of a keystr of dict keys and list indices."""
+    from repro_torch.sharding.rules import key_tokens
+
+    return tuple(_component(t) for t in key_tokens(key))
 
 
 class Leaf(NamedTuple):
@@ -35,7 +61,7 @@ class Leaf(NamedTuple):
 
 
 def _walk(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
-    if tree is None:
+    if tree is None or isinstance(tree, Row):
         return
     if torch.is_tensor(tree):
         out[prefix] = tree
@@ -76,7 +102,9 @@ def leaves(tree, stacked=None) -> List[Leaf]:
     family module (one with a ``cfg``) groups each stacked subtree's
     per-layer tensors into one leaf; so does `stacked` for any other tree
     (the path of each subtree `repro` stacks -> its number of stacked axes,
-    as for a decode cache); without either, each tensor is a leaf."""
+    as for a decode cache); without either, each tensor is a leaf. A
+    stacked parameter (``stacked.<keystr>``, `stack_leaves`) is its leaf
+    whole, with no stacked axes."""
     names = list(named_tensors(tree))
     if stacked is None:
         cfg = getattr(tree, "cfg", None)
@@ -86,6 +114,9 @@ def leaves(tree, stacked=None) -> List[Leaf]:
     for name in names:
         comps = tuple(_component(c) for c in name.split("."))
         path, index = comps, ()
+        if len(comps) == 2 and comps[0] == STACKED:
+            groups.setdefault(_key_path(comps[1]), []).append(((), name))
+            continue
         for prefix, levels in stacked.items():
             if comps[:len(prefix)] == prefix:
                 cut = len(prefix) + levels
@@ -107,8 +138,8 @@ def leaves(tree, stacked=None) -> List[Leaf]:
 
 
 def _map_named(fn: Callable, tree, prefix: str, others):
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, Row):
+        return tree
     if torch.is_tensor(tree):
         return fn(tree, *(o[prefix] for o in others))
     if isinstance(tree, dict):
@@ -147,8 +178,36 @@ def _structure(module):
     """A parameter module's nested dicts and lists holding its parameters
     themselves (``to_tree`` without ``.data``: no op runs on them, so a
     module on ``meta`` maps under a fake mode)."""
-    if module is None or torch.is_tensor(module):
+    if module is None or torch.is_tensor(module) or isinstance(module, Row):
         return module
     if hasattr(module, "keys"):
-        return {k: _structure(module[k]) for k in module.keys()}
+        return {k: _structure(module.entry(k)) for k in module.keys()}
     return [_structure(m) for m in module]
+
+
+def _set(tree, comps, value) -> None:
+    for c in comps[:-1]:
+        tree = tree[_component(c)]
+    tree[_component(comps[-1])] = value
+
+
+def stack_leaves(module, keys):
+    """A module of `module`'s class (a family's parameters, on any device,
+    ``meta`` too) in which each `repro` leaf named in `keys` is held
+    stacked as `repro` holds it: one tensor of the leaf's shape (its layers
+    stacked on its one stacked axis) under ``stacked[key]``, each layer's
+    entry a `Row` of it. Parameters already stacked stay so."""
+    named = named_tensors(module)
+    by_key = {leaf.key: leaf for leaf in leaves(module)}
+    tree = module.to_tree()
+    stacks = dict(tree.get(STACKED) or {})
+    for key in keys:
+        leaf = by_key[key]
+        if len(leaf.lead) != 1:
+            raise ValueError(f"{key}: a stacked parameter holds one stacked "
+                             f"axis, this leaf has {leaf.lead}")
+        stacks[key] = torch.stack([named[n].detach() for n in leaf.names])
+        for i, name in enumerate(leaf.names):
+            _set(tree, name.split("."), Row(key, i))
+    tree[STACKED] = stacks
+    return module.like(tree)

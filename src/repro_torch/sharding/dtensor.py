@@ -39,6 +39,9 @@ port's counterpart of `jax.device_put` onto ``NamedSharding``s.
   * `replication(tree)`: a context in which plain tensors (positions,
     masks, the learning rate) meet DTensors as replicated values, when
     `tree` holds DTensors.
+  * `stack_row(stack, index)`: a layer's row of a stacked parameter
+    (`optim.tree.stack_leaves`), broadcast by the rank that holds it,
+    never the stack gathered (FSDP's fold onto a layer axis, C27).
 
 ``torch.distributed.tensor`` is imported inside each function, never when
 this module is imported.
@@ -49,6 +52,7 @@ import contextlib
 import string
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -398,6 +402,117 @@ class _VocabShardLookup(torch.autograd.Function):
         table_grad = grad.new_zeros(ctx.table_shape).index_put_(
             (local,), grad, accumulate=True)
         return table_grad, None, None, None
+
+
+_ROW_GROUPS: Dict[tuple, object] = {}  # (world, mesh, dims) -> group
+
+
+def _rows_group(mesh, dims: tuple):
+    """(process group, size) of the ranks that share this rank's
+    coordinates off the mesh dims `dims`, ordered row-major over `dims`:
+    one mesh dim's own group, or for several a group of their ranks made
+    once a world (every rank makes every such group, in one order). Not
+    the mesh's flattened sub-mesh: the device mesh keeps those across
+    process groups, and a later world would meet the old one's group."""
+    import torch.distributed as dist
+
+    size = 1
+    for i in dims:
+        size *= mesh.size(i)
+    if len(dims) == 1:
+        return mesh.get_group(dims[0]), size
+    key = (dist.group.WORLD, mesh, dims)
+    if key not in _ROW_GROUPS:
+        others = [d for d in range(mesh.ndim) if d not in dims]
+        ranks = np.array(mesh.mesh.tolist()).transpose(
+            others + list(dims)).reshape(-1, size)  # numpy: host work
+        me = dist.get_rank()
+        for row in ranks.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                _ROW_GROUPS[key] = group
+    return _ROW_GROUPS[key], size
+
+
+def _row_owner(mesh, dims: tuple, n: int, index: int):
+    """Where row `index` of a dim of `n` rows split over the mesh dims
+    `dims` (``torch.chunk``'s split, in mesh-dim order) lives: (its
+    owner's place in `_rows_group`'s order, the row's index in the owner's
+    shard, whether this rank is the owner)."""
+    start, owner, mine = 0, 0, True
+    for i in dims:
+        chunk = -(-n // mesh.size(i))
+        c = (index - start) // chunk
+        start += c * chunk
+        n = max(0, min(chunk, n - c * chunk))
+        owner = owner * mesh.size(i) + c
+        mine = mine and mesh.get_local_rank(i) == c
+    return owner, index - start, mine
+
+
+class _StackRow(torch.autograd.Function):
+    """Row `index` of a DTensor `stack` whose dim 0 is split over some mesh
+    dims: the owner's local row broadcast over those dims' group; backward,
+    the row's gradient (a pending sum over those dims, or replicated there)
+    reduced onto the owner's row of a zero gradient of the stack."""
+
+    @staticmethod
+    def forward(ctx, stack, index):
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, local = stack.device_mesh, stack.to_local()
+        dims = tuple(i for i, p in enumerate(stack.placements)
+                     if p.is_shard() and p.dim % stack.ndim == 0)
+        row_pl = [Replicate() if i in dims else Shard(p.dim % stack.ndim - 1)
+                  if p.is_shard() else p
+                  for i, p in enumerate(stack.placements)]
+        owner, at, mine = _row_owner(mesh, dims, stack.shape[0], index)
+        out = local[at].clone() if mine else local.new_empty(local.shape[1:])
+        group, size = _rows_group(mesh, dims) if dims else (None, 1)
+        if size > 1:
+            dist.broadcast(out, src=dist.get_global_rank(group, owner),
+                           group=group)
+        ctx.dims, ctx.row_pl, ctx.at, ctx.mine = dims, row_pl, at, mine
+        ctx.owner, ctx.group, ctx.size = owner, group, size
+        ctx.stack = (mesh, tuple(stack.placements), tuple(stack.shape),
+                     tuple(local.shape))
+        return wrap(out, mesh, row_pl, shape=tuple(stack.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        mesh, placements, shape, local_shape = ctx.stack
+        pending = bool(ctx.dims) and all(
+            grad.placements[i].is_partial() for i in ctx.dims)
+        want = [grad.placements[i] if pending and i in ctx.dims else p
+                for i, p in enumerate(ctx.row_pl)]
+        g = redistribute(grad, want).to_local()
+        if pending and ctx.size > 1:
+            g = g.contiguous().clone()
+            dist.reduce(g, dst=dist.get_global_rank(ctx.group, ctx.owner),
+                        group=ctx.group)
+        out = g.new_zeros(local_shape)
+        if ctx.mine:
+            out[ctx.at] = g
+        return wrap(out, mesh, placements, shape=shape), None
+
+
+def stack_row(stack: torch.Tensor, index: int) -> torch.Tensor:
+    """Row `index` of a stacked parameter (`optim.tree.stack_leaves`): a
+    plain tensor's ``stack[index]``. A DTensor's rows may be split over
+    mesh dims (FSDP's fold of ('pod', 'data') onto the layer axis): the
+    rank holding the row broadcasts its shard of it over the ranks that
+    split the rows (one broadcast of the row's shard, never the stack
+    gathered, as DTensor's select does), the row laid out as the layer's
+    own tensor is (those mesh dims replicated, its other dims' shards
+    kept); backward reduces the row's gradient onto the owner's row of the
+    stack's gradient, every other row zeros (``torch.distributed``'s
+    ``broadcast`` and ``reduce``, on their process groups)."""
+    if not is_dtensor(stack):
+        return stack[index]
+    return _StackRow.apply(stack, index)
 
 
 def _first_row(mesh, sharded, n: int) -> int:

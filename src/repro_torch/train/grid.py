@@ -19,7 +19,16 @@ process group, each on its own mesh, so one spawn serves many checks:
   * ``nll``: the next-token loss of vocab-sharded logits and its
     gradient;
   * ``checkpoint``: a save on one mesh, a restore on another;
-  * ``train``: `train()` on the mesh from the seed.
+  * ``train``: `train()` on the mesh from the seed;
+  * ``buffers``: `update_over_buffers` over a static DTensor batch that
+    `copy_batch` refills, against `make_update_fn`'s eager update on a new
+    batch a step (what `train` captures on an NCCL mesh), and the host
+    reads (`core.capture.HostReads`) of one sharded update;
+  * ``row``: `sharding.dtensor.stack_row` of each row of a stack whose
+    layer axis is split over 'data' (FSDP's fold), against DTensor's
+    select, value and gradient;
+  * ``counts``: `launch.dryrun.grid_counts` (a step under the dry-run's
+    counter).
 
 An ``update`` case is judged by `update_errors` against a reference on
 the same inputs: `repro`'s jitted single-device step in the CPU tests, or
@@ -42,6 +51,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.interop import model_params_from_numpy, \
     model_params_to_numpy, opt_state_from_numpy, opt_state_to_numpy
+from repro_torch.launch.dryrun import grid_counts
 from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.models import Runtime, build_model, lm_loss, \
     param_shapes
@@ -234,8 +244,114 @@ def train_case(case: Dict[str, Any]) -> Dict[str, Any]:
             "shard_shapes": _local_shapes(out["params"])}
 
 
+def _copied(tree):
+    """`tree` with every array copied (`interop`'s arrays may share the
+    tensors' memory on the CPU, which later updates change in place)."""
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copied(v) for v in tree)
+    return tree.copy() if hasattr(tree, "copy") else tree
+
+
+def _state_numpy(cfg, params, opt) -> Dict[str, Any]:
+    """The parameters and optimizer state as numpy, copied."""
+    return _copied({"params": model_params_to_numpy(cfg, params),
+                    "opt": opt_state_to_numpy(cfg, opt)})
+
+
+def buffers_case(case: Dict[str, Any]) -> Dict[str, Any]:
+    """``steps`` updates of the case's parameters on its mesh, the batches
+    ``batches`` in turn (b1, b2, b1, ...), two ways from the same state:
+    `make_update_fn`'s update on each batch placed anew
+    (`device_put_batch`), and `update_over_buffers` over the first batch's
+    DTensors, each later batch copied into them by `copy_batch`. Returns
+    each way's metrics a step and final state, and the host reads of one
+    more buffers update and of a step that reads its loss (``.item()``)."""
+    from repro_torch.core.capture import HostReads
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.train.loop import METRICS, copy_batch, \
+        update_over_buffers
+
+    cfg = _cfg(case)
+    model = build_model(cfg)
+    mesh = make_process_mesh(*case["mesh"], device=case.get("device"))
+    tcfg = TrainConfig(**case.get("tcfg", {}))
+    opt_cfg, rt = OptConfig(**case.get("opt", {})), Runtime()
+    device = mesh_device(mesh)
+    sh = to_shardings(batch_pspecs(case["batches"][0], mesh), mesh)
+    hosts = [case["batches"][i % len(case["batches"])]
+             for i in range(case["steps"])]
+    out: Dict[str, Any] = {}
+    for way in ("eager", "buffers"):
+        params = model_params_from_numpy(
+            cfg, case["params"], device, param_shardings(param_shapes(cfg),
+                                                         mesh))
+        opt = init_opt_state(params)
+        residual = init_residual(params) if tcfg.grad_compression else None
+        metrics = []
+        if way == "eager":
+            update = make_update_fn(model, opt_cfg, rt, tcfg)
+            for host in hosts:
+                _, _, residual, m = update(params, opt, residual,
+                                           device_put_batch(host, device, sh))
+                metrics.append([float(m[k]) for k in METRICS])
+        else:
+            # a copy: on the CPU the tensors share the arrays' memory
+            batch = device_put_batch({k: v.copy() for k, v in
+                                      hosts[0].items()}, device, sh)
+            step = update_over_buffers(model, opt_cfg, rt, tcfg, params,
+                                       opt, residual, batch)
+            for i, host in enumerate(hosts):
+                if i:
+                    copy_batch(batch, host)
+                m = step()
+                metrics.append([float(m[k]) for k in METRICS])
+        out[way] = dict(_state_numpy(cfg, params, opt), metrics=metrics)
+    out["batch_placements"] = {k: repr(v.placements)
+                               for k, v in batch.items()}
+    with HostReads() as reads:
+        step()
+    with HostReads() as planted:
+        step()["loss"].item()
+    out["host_reads"] = {"update": reads.ops, "planted": planted.ops}
+    return out
+
+
+def row_case(case: Dict[str, Any]) -> Dict[str, Any]:
+    """Each row of the case's ``stack`` (L, D) laid out on ('data',
+    'model'), its layer axis split over 'data' as FSDP's fold splits it,
+    read by `sharding.dtensor.stack_row` and by DTensor's select: the rows
+    gathered, and the stack's gradient of ``sum(w * (x + row_l)**2)`` over
+    every row, `x` (B, D) and `w` with their rows over 'data'."""
+    from repro_torch.sharding.dtensor import distribute, full, stack_row
+
+    mesh = make_process_mesh(*case["mesh"], device=case.get("device"))
+    sh = to_shardings({"stack": ("data", "model"),
+                       "rows": ("data", "model")}, mesh)
+    x, w = (distribute(torch.from_numpy(case[k]), sh["rows"])
+            for k in ("x", "w"))
+    out = {}
+    for way, read in (("stack_row", stack_row),
+                      ("select", lambda t, i: t[i])):
+        stack = distribute(torch.from_numpy(case["stack"]),
+                           sh["stack"]).requires_grad_()
+        rows, loss = [], None
+        for i in range(stack.shape[0]):
+            row = read(stack, i)
+            rows.append(full(row.detach()).numpy())
+            term = (w * (x + row) ** 2).sum()
+            loss = term if loss is None else loss + term
+        (grad,) = torch.autograd.grad(full(loss), stack)
+        out[way] = {"rows": rows, "grad": full(grad).numpy(),
+                    "placements": repr(row.placements),
+                    "grad_placements": repr(grad.placements)}
+    return out
+
+
 CASES = {"update": update_case, "embed": embed_case, "nll": nll_case,
-         "checkpoint": checkpoint_case, "train": train_case}
+         "checkpoint": checkpoint_case, "train": train_case,
+         "buffers": buffers_case, "row": row_case, "counts": grid_counts}
 
 
 def run_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:

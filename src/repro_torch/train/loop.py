@@ -20,7 +20,11 @@ the moments and the step updated in place, the compression residual and
 the metrics copied back, a static batch the pipeline's batch is copied
 into); `train` runs it once eagerly on a side stream, the warm-up and a
 real step, then captures it there once (`core.capture.CapturedStep`) and
-replays it a step. On a process mesh the update stays eager (ROADMAP A4).
+replays it a step. On an NCCL process mesh the same: the parameters,
+moments and batch are DTensors that live across steps, each rank copies
+its rows of the next batch into its shard of the static batch, and the
+graph holds DTensor's local kernels and its NCCL collectives. A gloo (CPU)
+mesh trains eagerly, as the CPU does.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import torch
 from repro_torch.core.capture import CapturedStep, on_side_stream
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, \
-    TokenPipeline, device_put_batch
+    TokenPipeline, device_put_batch, local_rows
 from repro_torch.models import Model, lm_loss
 from repro_torch.models.transformer import Runtime
 from repro_torch.optim.compression import compress_with_feedback, \
@@ -164,11 +168,19 @@ def update_over_buffers(model: Model, opt_cfg: OptConfig, rt: Runtime,
 
 
 def copy_batch(static: Dict[str, torch.Tensor], host) -> None:
-    """The pipeline's numpy batch copied into the static batch on the card,
+    """The pipeline's numpy batch copied into the static batch in place; a
+    DTensor of it takes this rank's rows into its local shard (the batch's
+    placements stay as the first step made them). A copy to the card goes
     through pinned memory without blocking the host."""
     for name, arr in host.items():
-        static[name].copy_(torch.from_numpy(np.ascontiguousarray(arr))
-                           .pin_memory(), non_blocking=True)
+        dst = static[name]
+        if is_dtensor(dst):
+            arr = local_rows(arr, Sharding(dst.device_mesh, dst.placements))
+            dst = dst.to_local()
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
 
 
 def _process_mesh(mesh) -> bool:
@@ -224,20 +236,18 @@ def train(
     update is captured there once as a CUDA graph
     (`core.capture.CapturedStep`) and each later step copies the
     pipeline's batch into the static batch and replays it; a capture that
-    fails raises. ``capture=False`` runs every step eagerly, as the CPU
-    does; ``capture=True`` off the card raises ValueError, and on a
-    process mesh NotImplementedError (ROADMAP A4). Each history entry
-    reads the step's loss, grad norm and lr from its outputs and names
-    its kind: ``"step"`` (eager) or ``"replay"``."""
+    fails raises. On an NCCL process mesh the same (`repro` jits the
+    update on any mesh): the first step's batch DTensors are the static
+    batch, each rank copying its rows of the next into its shard.
+    ``capture=False`` runs every step eagerly, as the CPU and a gloo mesh
+    do; ``capture=True`` off the card raises ValueError. Each history
+    entry reads the step's loss, grad norm and lr from its outputs and
+    names its kind: ``"step"`` (eager) or ``"replay"``."""
     sharded = _process_mesh(mesh)
-    if sharded and capture:
-        raise NotImplementedError(
-            "train(capture=True) on a process mesh: the sharded update is "
-            "not captured yet (ROADMAP A4); pass capture=None or False")
     device = _mesh_device(mesh, device) if sharded \
         else _single_device(mesh, device)
     if capture is None:
-        capture = device.type == "cuda" and not sharded
+        capture = device.type == "cuda"
     if capture and device.type != "cuda":
         raise ValueError(f"capture=True needs the card; training runs on "
                          f"{device}")
@@ -311,7 +321,8 @@ def train(
                 and step + 1 < tcfg.total_steps:
             t0 = time.time()
             graph = CapturedStep(update, side, f"{cfg.name}: train could "
-                                 f"not capture the training update")
+                                 f"not capture the training update",
+                                 process_group=sharded)
             torch.cuda.synchronize(device)
             capture_s = time.time() - t0
     if ckpt is not None:

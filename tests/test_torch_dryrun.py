@@ -186,8 +186,9 @@ def test_argument_bytes_equal_repros_rules_on_every_cell(mesh_key):
 # onto it (1280 / 256), and its FFN-in biases (5120) on both meshes; on
 # 2x16x16, 512 does not divide 1280 and no per-layer placement holds
 # `repro`'s bytes (ROADMAP C27). Their ZeRO-1 moments are kept stacked, as
-# `repro` holds them (`optimizer.zero1_opt_state`): `repro`'s bytes. Their
-# FSDP parameters stay model-sharded: rank 0 holds more than `repro`.
+# `repro` holds them (`optimizer.zero1_opt_state`), and so are their FSDP
+# parameters (`optim.tree.stack_leaves`, each layer reading its row with
+# `dtensor.stack_row`): `repro`'s bytes both.
 FOLD_EXCEPTIONS = {"16x16": {}, "2x16x16": {"whisper-large-v3": [
     f"['{stack}']['{block}']['{b}']"
     for stack, blocks in (("dec", ("cross_attn", "self_attn")),
@@ -219,27 +220,6 @@ def _fold_exceptions(name, mesh_key) -> list:
         and not _names_data(per_tensor[leaf.names[0]]))
 
 
-def _fold_exception_bytes(name, mesh_key, *, fsdp) -> int:
-    """What rank 0 holds more than `repro` of the `FOLD_EXCEPTIONS` leaves:
-    under `fsdp` each parameter is model-sharded only, where `repro` also
-    cuts its layer axis dp ways (its moments under ZeRO-1 are stacked and
-    cut as `repro` cuts them: nothing more)."""
-    shape, names = MESHES[mesh_key]
-    sizes = dict(zip(names, shape))
-    dp = sizes["data"] * sizes.get("pod", 1)
-    params = _repro_params(name)
-    flat = {jax.tree_util.keystr(p): x for p, x in
-            jax.tree_util.tree_leaves_with_path(params)}
-    extra = 0
-    for key in FOLD_EXCEPTIONS[mesh_key].get(name, []):
-        x = flat[key]
-        per_layer = x.size // x.shape[0] // sizes["model"]
-        held = x.shape[0] * per_layer  # every layer, model-sharded
-        want = x.shape[0] // dp * per_layer
-        extra += (held - want) * x.dtype.itemsize * fsdp
-    return extra
-
-
 @pytest.mark.parametrize("mode", ["zero1", "fsdp"])
 @pytest.mark.parametrize("mesh_key", sorted(MESHES))
 def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
@@ -249,8 +229,8 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
     layer axis (smollm-360m, llama3-8b, whisper-large-v3) the port folds
     them onto each layer's tensor (`rules.zero1_tensor_pspecs`; jointly
     with 'model' on a bias already model-sharded), the same bytes a device;
-    the named `FOLD_EXCEPTIONS` of 2x16x16 keep their moments stacked
-    (`repro`'s bytes) and, under FSDP, hold their stated difference more."""
+    the named `FOLD_EXCEPTIONS` of 2x16x16 keep their moments and, under
+    FSDP, their parameters stacked: `repro`'s bytes on every cell."""
     mesh = FakeMesh(*MESHES[mesh_key])
     got, want = {}, {}
     for name, shape in CELLS:
@@ -262,9 +242,8 @@ def test_zero1_and_fsdp_argument_bytes_equal_repros_rules(mesh_key, mode):
                                  mesh=mesh, device="meta", make=_local_meta,
                                  **flags)
         got[name, shape] = dr.local_bytes(args)
-        want[name, shape] = _repro_argument_bytes(
-            name, cell, mesh_key, **flags) + _fold_exception_bytes(
-            name, mesh_key, fsdp=flags["fsdp"])
+        want[name, shape] = _repro_argument_bytes(name, cell, mesh_key,
+                                                  **flags)
     assert len(got) == 32
     assert got == want
 
@@ -366,6 +345,247 @@ def test_a_layers_row_of_a_stacked_parameter_gathers_the_whole_stack():
     assert counts["collectives"]["all-gather"] >= 32 * 80 * 2
 
 
+WHISPER_QKV = ("['bq']", "['bk']", "['bv']")
+
+
+@pytest.mark.parametrize("mesh_key", sorted(MESHES))
+def test_fsdp_holds_the_unfolded_leaves_stacked(mesh_key):
+    """ROADMAP C27's FSDP half: on 2x16x16 whisper's nine
+    `FOLD_EXCEPTIONS` parameters are each one bf16 (32, 1280) tensor on
+    `repro`'s spec (('pod', 'data'), 'model'), ``stacked.<keystr>``, rank 0
+    holding its row of 80 (`repro`'s bytes); each layer's entry is a
+    `Row` of it. The moments sit on `repro`'s layouts: the parameter
+    rules' (32, 80) a rank under FSDP alone, ZeRO-1's (1, 80) with it. On
+    16x16 nothing is stacked."""
+    from repro_torch.optim.tree import Row, named_tensors
+    from repro_torch.sharding import rules
+
+    mesh = FakeMesh(*MESHES[mesh_key])
+    cfg, cell = ARCHS["whisper-large-v3"], dr.SHAPES_BY_NAME["train_4k"]
+    keys = sorted(FOLD_EXCEPTIONS[mesh_key].get(cfg.name, []))
+    for zero1, moment_rows in ((False, 32), (True, 1)):
+        _, (params, opt, _) = dr.step_inputs(
+            cfg, cell, dr.default_runtime(cell), mesh=mesh, device="meta",
+            make=_local_meta, fsdp=True, zero1=zero1)
+        stacked = sorted(n for n in named_tensors(params)
+                         if n.startswith("stacked."))
+        assert stacked == [f"stacked.{k}" for k in keys]
+        for key in keys:
+            t = named_tensors(params)[f"stacked.{key}"]
+            assert t.dtype == torch.bfloat16 and tuple(t.shape) == (1, 80)
+            for part in (opt.mu, opt.nu):
+                m = named_tensors(part)[f"stacked.{key}"]
+                assert tuple(m.shape) == (moment_rows, 80)
+            assert opt.stacked is None
+        if keys:
+            layer = params.dec[3].self_attn
+            assert layer.entry("bq") == Row("['dec']['self_attn']['bq']", 3)
+            assert "bq" in layer and "bq" not in dict(
+                layer.named_parameters())
+            assert rules.zero1_stacked_pspecs(
+                dr._param_shapes(cfg), mesh)[keys[0]] == \
+                (("pod", "data"), "model")
+
+
+def _stack_on_fake_512(fake):
+    from repro_torch.sharding import dtensor, rules
+
+    mesh = dr.mesh_of((2, 16, 16), "cpu")
+    sh = rules.Sharding(mesh, rules.to_placements((("pod", "data"),
+                                                   "model"), mesh))
+    with fake:
+        stack = dtensor.empty(torch.empty((32, 1280), dtype=torch.bfloat16,
+                                          device="meta"), sh, "cpu")
+        x = dtensor.empty(torch.empty((64, 1280), dtype=torch.bfloat16,
+                                      device="meta"), sh, "cpu")
+    return stack.requires_grad_(), x
+
+
+def test_a_layers_row_read_is_one_broadcast_of_its_row():
+    """What closes C27's FSDP half, on the fake 512-rank world: the row
+    read (`dtensor.stack_row`) of layer 5 of a (32, 1280) bf16 stack on
+    (('pod', 'data'), 'model') moves one broadcast of the row's 80
+    elements a rank (160 B) and gathers nothing; the row is laid out as
+    the layer's own bias, (Replicate, Replicate, Shard(0)). Backward, the
+    gradient of ``sum(x * (x + row))`` over a batch split over ('pod',
+    'data') is one reduce of 80 elements onto the row's owner, the stack's
+    gradient on the stack's layout, nothing gathered either way. A
+    second world in the same process reads its row the same way (its own
+    process groups, none of the first world's)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.dtensor import stack_row
+
+    with dr.fake_world(512):
+        fake = FakeTensorMode(allow_non_fake_inputs=False)
+        stack, _ = _stack_on_fake_512(fake)
+        first = dr.count_step(lambda p: stack_row(p, 30), (stack,),
+                              dr.StepCounter(fake))
+    assert first["collectives"]["broadcast"] == 160.0
+    with dr.fake_world(512):
+        fake = FakeTensorMode(allow_non_fake_inputs=False)
+        stack, x = _stack_on_fake_512(fake)
+        seen = {}
+
+        def read(p):
+            row = stack_row(p, 5)
+            seen["row"] = (row.placements, tuple(row.shape),
+                           tuple(row.to_local().shape))
+            return row
+
+        fwd = dr.count_step(read, (stack,), dr.StepCounter(fake))
+
+        def read_and_grad(p, x):
+            loss = (x * (x + stack_row(p, 5))).float().sum()
+            (g,) = torch.autograd.grad(loss.full_tensor(), p)
+            seen["grad"] = (g.placements, tuple(g.to_local().shape))
+            return g
+
+        both = dr.count_step(read_and_grad, (stack, x), dr.StepCounter(fake))
+    assert seen["row"] == ((Replicate(), Replicate(), Shard(0)), (1280,),
+                           (80,))
+    assert fwd["collectives"] == {"broadcast": 160.0, "total_bytes": 160.0,
+                                  "op_count": 1}
+    assert seen["grad"] == ((Shard(0), Shard(0), Shard(1)), (1, 80))
+    moved = {k: v for k, v in both["collectives"].items()
+             if k in ("broadcast", "reduce", "all-gather")}
+    assert moved == {"broadcast": 160.0, "reduce": 160.0}
+
+
+def test_fsdp_with_stacked_leaves_runs_on_a_fake_world(monkeypatch):
+    """The FSDP step through the row read: reduced whisper's q/k/v biases
+    (4 and 2 layers, 64 wide, on a fake 2x2 world, where the per-layer
+    fold holds) forced stacked on `repro`'s spec. The cell runs with FSDP
+    alone and with ZeRO-1, each layer reading its row (a broadcast, once
+    forward and once more under remat ``dots``; a reduce backward, one a
+    layer's bias), with the per-layer fold's argument bytes."""
+    from repro_torch.optim.tree import named_tensors
+    from repro_torch.sharding import rules
+
+    cfg, cell = get_arch("whisper-large-v3").reduced(), MINI["train_mini"]
+    mesh = FakeMesh((2, 2), ("data", "model"))
+    folded = rules.zero1_pspecs(dr._param_shapes(cfg), mesh)
+    forced = {k: v for k, v in folded.items() if k.endswith(WHISPER_QKV)}
+    assert len(forced) == 9
+    reads = sum(n for n, in ((cfg.n_layers,), (cfg.n_layers,),
+                             (cfg.encdec.n_encoder_layers,))) * 3
+    runs = {}
+    for forcing in (False, True):
+        if forcing:
+            # as the rule: a leaf held stacked has no per-layer form
+            monkeypatch.setattr(rules, "zero1_stacked_pspecs", lambda p, mesh,
+                                **kw: {} if any(n.startswith("stacked.")
+                                                for n in named_tensors(p))
+                                else forced)
+        for zero1 in (False, True):
+            res = dr.run_cell(cfg, cell, save=False, device="cpu",
+                              mesh_shape=(2, 2), fsdp=True, zero1=zero1)
+            assert res.ok, res.error
+            runs[forcing, zero1] = res
+    for zero1 in (False, True):
+        plain, stacked = runs[False, zero1], runs[True, zero1]
+        assert "broadcast" not in plain.collectives
+        assert stacked.memory["argument_size_in_bytes"] == \
+            plain.memory["argument_size_in_bytes"]
+        bias = named_tensors(dr._param_shapes(cfg))["dec.0.self_attn.bq"]
+        row = bias.shape[0] // 2 * bias.element_size()  # a rank's half
+        assert stacked.collectives["broadcast"] == 2 * reads * row
+        assert stacked.collectives["reduce"] == reads * row
+
+
+def test_a_stacked_fsdp_state_round_trips(tmp_path):
+    """Reduced whisper with its nine q/k/v biases stacked: the loss and
+    the gradients equal the per-layer model's bitwise, an update within
+    1e-6 (a stacked leaf's elementwise kernels run over another shape);
+    `interop` carries the stacked leaf across as `repro`'s leaf (one rank
+    of a gloo mesh: a DTensor placed by `shardings` naming it); a
+    checkpoint names it ``['params']['dec']['self_attn']['bq']``, the
+    leaf's name in `repro` and in the per-layer state's files, and
+    restores bitwise into a fresh stacked state."""
+    import json
+
+    from repro_torch.core.interop import model_params_from_numpy, \
+        model_params_to_numpy
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import Runtime, build_model, lm_loss, \
+        make_input_batch
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.optim.tree import leaves, named_tensors, stack_leaves
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.dtensor import is_dtensor
+    from repro_torch.train.checkpoint import restore_latest, \
+        save_checkpoint
+    from repro_torch.train.loop import TrainConfig, make_update_fn, \
+        value_and_grad
+
+    cfg = get_arch("whisper-large-v3").reduced()
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    per_layer = model.init(gen, device="cpu")
+    batch = make_input_batch(cfg, 2, 8, gen, device="cpu")
+    keys = [leaf.key for leaf in leaves(per_layer)
+            if leaf.key.endswith(WHISPER_QKV)]
+    stacked = stack_leaves(per_layer, keys)
+
+    def flat(tree):
+        return jax.tree.leaves(tree)
+
+    want = model_params_to_numpy(cfg, per_layer)
+    assert [a.tobytes() for a in flat(model_params_to_numpy(
+        cfg, stacked))] == [a.tobytes() for a in flat(want)]
+    grads = [value_and_grad(lambda p: lm_loss(model, p, batch, Runtime()),
+                            p) for p in (per_layer, stacked)]
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert [a.tobytes() for a in flat(model_params_to_numpy(
+        cfg, grads[1][1]))] == [a.tobytes() for a in flat(
+            model_params_to_numpy(cfg, grads[0][1]))]
+    states = []
+    for p in (per_layer, stacked):
+        opt = init_opt_state(p)
+        make_update_fn(model, OptConfig(), Runtime(), TrainConfig())(
+            p, opt, None, batch)
+        states.append({"params": p, "opt": opt})
+    for a, b in zip(flat(model_params_to_numpy(cfg, per_layer)),
+                    flat(model_params_to_numpy(cfg, stacked))):
+        np.testing.assert_allclose(np.asarray(b, np.float64),
+                                   np.asarray(a, np.float64), rtol=0,
+                                   atol=1e-6)
+
+    for i, state in enumerate(states):
+        save_checkpoint(tmp_path / str(i), 1, state)
+    names = [[e["name"] for e in json.loads(
+        (tmp_path / str(i) / "step_00000001" / "manifest.json").read_text())
+        ["leaves"]] for i in range(2)]
+    assert names[0] == names[1]
+    assert "['params']['dec']['self_attn']['bq']" in names[1]
+    assert "['opt'].mu['dec']['self_attn']['bq']" in names[1]
+    fresh = stack_leaves(model.init(torch.Generator().manual_seed(9),
+                                    device="cpu"), keys)
+    restore_latest(tmp_path / "1", {"params": fresh,
+                                    "opt": init_opt_state(fresh)})
+    for n, t in named_tensors(stacked).items():
+        assert torch.equal(named_tensors(fresh)[n], t), n
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_process_mesh(1, 1, device="cpu")
+        shardings = rules.to_shardings(rules.zero1_tensor_pspecs(
+            stack_leaves(dr._param_shapes(cfg), keys), mesh), mesh)
+        assert f"stacked.{keys[0]}" in shardings
+        tree = model_params_to_numpy(cfg, stacked)
+        placed = model_params_from_numpy(cfg, tree, "cpu", shardings)
+        t = named_tensors(placed)[f"stacked.{keys[0]}"]
+        assert is_dtensor(t) and tuple(t.shape) == (cfg.n_layers,
+                                                    cfg.d_model)
+        assert [a.tobytes() for a in flat(model_params_to_numpy(
+            cfg, placed))] == [a.tobytes() for a in flat(tree)]
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # (ii) the reduced cells against repro's compiled ones
 # ---------------------------------------------------------------------------
@@ -451,9 +671,24 @@ GRID_CASE = {"arch": "tinyllama-1.1b", "reduced": True,
              "cell": ("train_mini", 32, 8, "train"), "mesh": (2, 2)}
 
 
-def test_fake_world_counts_equal_a_real_gloo_grid():
+@pytest.fixture(scope="module")
+def gloo_grid():
+    """Rank 0's results of one grid of four gloo ranks
+    (`train.grid.run_cases`): (iii)'s counted step, and the row read of a
+    (4, 64) stack split over 'data' against DTensor's select (C27)."""
+    from repro_torch.train.grid import run_cases
+
+    rng = np.random.default_rng(11)
+    draw = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    cases = [dict(GRID_CASE, kind="counts"),
+             dict(kind="row", mesh=(2, 2), device="cpu", stack=draw(4, 64),
+                  x=draw(4, 64), w=draw(4, 64))]
+    return run_grid(run_cases, 4, (cases,))[0]
+
+
+def test_fake_world_counts_equal_a_real_gloo_grid(gloo_grid):
     """(iii)"""
-    real = run_grid(dr.grid_counts, 4, (GRID_CASE,))[0]
+    real = gloo_grid[0]
     fake = dr.run_cell(get_arch("tinyllama-1.1b").reduced(),
                        ShapeCell(*GRID_CASE["cell"]), save=False,
                        device="cpu", mesh_shape=(2, 2))
@@ -465,6 +700,26 @@ def test_fake_world_counts_equal_a_real_gloo_grid():
     assert fake.cost["flops"] == real["cost"]["flops"] > 0
     assert fake.memory["argument_size_in_bytes"] == \
         real["memory"]["argument_size_in_bytes"]
+
+
+def test_a_stacked_rows_read_equals_dtensors_select_on_a_gloo_grid(
+        gloo_grid):
+    """C27's row read on four gloo ranks: each of the 4 rows of a float32
+    (4, 64) stack on ('data', 'model') read by `dtensor.stack_row` (the
+    owner's broadcast) equals DTensor's select of it bit for bit, laid out
+    alike, and so does the stack's gradient of ``sum(w * (x + row)**2)``
+    over every row, `x` and `w` split over 'data' (a reduce onto each
+    row's owner against DTensor's gathered select)."""
+    res = gloo_grid[1]
+    mine, theirs = res["stack_row"], res["select"]
+    assert len(mine["rows"]) == 4
+    for a, b in zip(mine["rows"], theirs["rows"]):
+        assert a.shape == (64,) and a.tobytes() == b.tobytes()
+    assert mine["placements"] == theirs["placements"] == \
+        "(Replicate(), Shard(dim=0))"
+    assert mine["grad"].tobytes() == theirs["grad"].tobytes()
+    assert np.abs(mine["grad"]).min() > 0
+    assert mine["grad_placements"] == "(Shard(dim=0), Shard(dim=1))"
 
 
 @pytest.mark.parametrize("shape", ["train_mini", "decode_mini"])

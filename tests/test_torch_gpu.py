@@ -1184,10 +1184,12 @@ def _tiny_cfg():
     return dataclasses.replace(ARCHS["tinyllama-1.1b"].reduced(), n_layers=2)
 
 
-def _train_on_card(cuda, capture, steps=4, remat="none", cfg=None, **kw):
-    """`train()` of `cfg` (default `_tiny_cfg`) on the card for `steps`
-    steps: (its output, each step's kind, each step's loss, grad norm and
-    lr as its history read them from the step's outputs)."""
+def _train_on_card(cuda, capture, steps=4, remat="none", cfg=None,
+                   mesh=None, **kw):
+    """`train()` of `cfg` (default `_tiny_cfg`) on the card (or on the
+    process mesh `mesh`) for `steps` steps: (its output, each step's kind,
+    each step's loss, grad norm and lr as its history read them from the
+    step's outputs)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import Runtime, build_model
     from repro_torch.optim.optimizer import OptConfig
@@ -1199,7 +1201,7 @@ def _train_on_card(cuda, capture, steps=4, remat="none", cfg=None, **kw):
                 tcfg=TrainConfig(total_steps=steps, log_every=1, **kw),
                 data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                     global_batch=4),
-                device=cuda, capture=capture)
+                device=cuda, capture=capture, mesh=mesh)
     hist = out["history"]
     return out, [h["kind"] for h in hist], [
         (h["loss"], h["grad_norm"], h["lr"]) for h in hist]
@@ -1286,6 +1288,37 @@ def test_moe_update_repeats_itself_and_its_replays_bitwise(cuda):
     for got in (_state_bits(e2), _state_bits(c)):
         for key, t in want.items():
             assert torch.equal(got[key], t), key
+
+
+def test_sharded_update_captured_on_a_1x1_nccl_mesh_is_bitwise(cuda):
+    """`train(mesh=make_process_mesh(1, 1))` on the card captures the
+    sharded update by default (ROADMAP A4): reduced tinyllama at 2 layers,
+    microbatches 2 with compression, 3 steps. The captured run (an eager
+    first step, then replays of one CUDA graph of DTensor's local kernels)
+    gives every step's loss, grad norm and lr and every parameter's and
+    moment's local shard of the same run eager (``capture=False``), bit
+    for bit. The process group is destroyed afterwards."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_process_mesh
+
+    try:
+        mesh = make_process_mesh(1, 1)
+        (eo, ek, em), (co, ck, cm) = (
+            _train_on_card(cuda, c, steps=3, mesh=mesh, microbatches=2,
+                           grad_compression=True) for c in (False, None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert not dist.is_initialized()
+    assert ek == ["step"] * 3 and ck == ["step", "replay", "replay"]
+    assert co["captured"] and not eo["captured"]
+    assert co["capture_seconds"] > 0
+    assert cm == em
+    got = _state_bits(co)
+    for key, t in _state_bits(eo).items():
+        assert torch.equal(got[key].to_local(), t.to_local()), key
+    assert int(co["opt_state"].step) == 3
 
 
 def test_training_capture_that_fails_raises(cuda, monkeypatch):

@@ -8,8 +8,8 @@ captures as one CUDA graph, on the CPU, where it runs eagerly:
     update;
   * reading its static batch when it runs (batches b1, b2, b1 from one
     state give b1's result twice, ROADMAP C10's pattern);
-  * ``capture=True`` raising on the CPU and, naming ROADMAP A4, on a
-    process mesh (a one-rank gloo group);
+  * ``capture=True`` raising on the CPU and on a gloo process mesh (a
+    one-rank group), where the default trains eagerly;
   * the bias corrections made without a host copy, with today's bits;
   * a resume restoring into the tensors the update reads;
   * ZeRO-1's stacked moments (ROADMAP C27) updating as the per-layer
@@ -239,9 +239,10 @@ def test_capture_true_on_the_cpu_raises():
 
 
 def test_capture_true_on_a_process_mesh_raises_naming_a4():
-    """A one-rank gloo mesh: ``capture=True`` raises NotImplementedError
-    naming ROADMAP A4 before anything is drawn; the default trains there
-    eagerly."""
+    """ROADMAP A4 (done): the sharded update is captured on an NCCL mesh
+    only. On a one-rank gloo mesh ``capture=True`` raises ValueError, as
+    on the CPU, before anything is drawn; the default (None) and False
+    train there eagerly and give the same history."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import free_port, make_process_mesh
@@ -250,12 +251,17 @@ def test_capture_true_on_a_process_mesh_raises_naming_a4():
                             f"{free_port()}", rank=0, world_size=1)
     try:
         mesh = make_process_mesh(1, 1, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        with pytest.raises(ValueError, match="capture=True needs the card"):
             _small_train(mesh=mesh, capture=True,
                          tcfg=TrainConfig(total_steps=2))
-        out = _small_train(mesh=mesh, tcfg=TrainConfig(total_steps=2,
-                                                       log_every=1))
-        assert len(out["history"]) == 2 and not out["captured"]
+        runs = [_small_train(mesh=mesh, capture=c, tcfg=TrainConfig(
+            total_steps=2, log_every=1)) for c in (None, False)]
+        for out in runs:
+            assert len(out["history"]) == 2 and not out["captured"]
+            assert out["capture_seconds"] is None
+            assert [h["kind"] for h in out["history"]] == ["step", "step"]
+        assert [h["loss"] for h in runs[0]["history"]] == \
+            [h["loss"] for h in runs[1]["history"]]
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()

@@ -11,8 +11,11 @@ process grid serves the module (`launch.mesh.run_grid` with
 1x4 and 4x1 meshes, microbatches 2 with compression and reduced smollm-360m
 on 2x2, the shards' shapes, the vocab-sharded lookup of data-sharded ids
 (C5's site) bitwise, a checkpoint saved on 2x2 restored on 4x1 and on one
-process, and `train(mesh=...)` against `train()`. Every other family's
-update on 2x2 is in `test_torch_train_sharded_families.py`."""
+process, `train(mesh=...)` against `train()`, and the update `train`
+captures on an NCCL mesh (`update_over_buffers` over a static DTensor
+batch that `copy_batch` refills) against the eager update bitwise, with
+no host read in it. Every other family's update on 2x2 is in
+`test_torch_train_sharded_families.py`."""
 import dataclasses
 import functools
 from pathlib import Path
@@ -59,6 +62,8 @@ MB_COMPRESSION = dict(microbatches=2, grad_compression=True)
 CKPT_STEP = 7
 TRAIN = dict(arch="tinyllama-1.1b", steps=3, batch=4, seq=16, ckpt_every=2)
 TRAIN_PARAM_ATOL = 1e-4
+BUFFER_TCFGS = [{}, MB_COMPRESSION]  # microbatches 1 and 2, compression
+BUFFER_STEPS = 3  # batches b1, b2, b1
 
 
 @pytest.fixture(autouse=True)
@@ -124,6 +129,12 @@ def grid(tmp_path_factory):
                       save_dir=str(dirs.ckpt)))
     cases.append(dict(kind="train", mesh=(2, 2), device="cpu",
                       ckpt_dir=str(dirs.train), **TRAIN))
+    _, _, params, batch = _repro("tinyllama-1.1b")
+    other = {k: np.ascontiguousarray(v[:, ::-1]) for k, v in batch.items()}
+    for tcfg in BUFFER_TCFGS:
+        cases.append(dict(kind="buffers", arch="tinyllama-1.1b", mesh=(2, 2),
+                          device="cpu", params=params, tcfg=tcfg,
+                          batches=[batch, other], steps=BUFFER_STEPS))
     by_rank = run_grid(run_cases, WORLD, (cases,), timeout=900)
     return SimpleNamespace(cases=cases, by_rank=by_rank, dirs=dirs)
 
@@ -351,3 +362,45 @@ def test_train_on_a_process_mesh_matches_train(grid):
         np.testing.assert_allclose(g, w, rtol=0, atol=TRAIN_PARAM_ATOL)
     saved = sorted(p.name for p in Path(case["ckpt_dir"]).glob("step_*"))
     assert saved == ["step_00000000", "step_00000002"]
+
+
+def _leaves_bits(tree):
+    return [np.asarray(x).tobytes() for x in jax.tree.leaves(tree)]
+
+
+@pytest.mark.parametrize("tcfg", BUFFER_TCFGS,
+                         ids=["mb1", "mb2-compression"])
+def test_buffers_update_on_a_static_dtensor_batch_is_bitwise(grid, tcfg):
+    """What `train` captures on an NCCL mesh, eagerly on 2x2: three
+    updates of `update_over_buffers` over the first batch's DTensors, the
+    batches b1, b2, b1 copied into them by `copy_batch` (each rank its
+    rows), equal three `make_update_fn` updates on each batch placed anew,
+    bit for bit: every step's loss, grad norm and lr, then every parameter
+    and moment. The static batch keeps its rows on 'data'."""
+    case, results = _result(grid, kind="buffers", tcfg=tcfg)
+    first = results[0]["eager"]["metrics"]
+    assert len(first) == BUFFER_STEPS
+    assert first[0] != first[1] and first[0][0] == pytest.approx(
+        first[2][0], rel=1e-2)  # b1, b2, b1: the batch changed twice
+    for res in results:
+        assert res["buffers"]["metrics"] == res["eager"]["metrics"] == first
+        for part in ("params", "opt"):
+            assert _leaves_bits(res["buffers"][part]) == \
+                _leaves_bits(res["eager"][part])
+        assert int(res["buffers"]["opt"][2]) == BUFFER_STEPS
+        assert res["batch_placements"] == {
+            "tokens": "(Shard(dim=0), Replicate())"}
+
+
+def test_the_sharded_update_reads_nothing_on_the_host(grid):
+    """`core.capture.HostReads` over one more buffers update on every rank
+    of 2x2 (microbatches 1, and 2 with compression) finds no
+    ``aten._local_scalar_dense`` and no ``aten.nonzero``: nothing a CUDA
+    graph would refuse. It fires on the same update followed by a planted
+    ``.item()`` of its loss."""
+    for tcfg in BUFFER_TCFGS:
+        _, results = _result(grid, kind="buffers", tcfg=tcfg)
+        for res in results:
+            assert res["host_reads"]["update"] == []
+            assert res["host_reads"]["planted"] == \
+                ["aten._local_scalar_dense"]
