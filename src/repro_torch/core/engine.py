@@ -57,6 +57,7 @@ from .perfmodel import DEFAULT_HW, HWConfig, matmat_spmv_perf, spmv_perf, \
     streaming_spmv_perf
 from .runtime import Pending, Staged, normalize_to_sell, \
     on_compute_stream, pad_width, resolve_device, stage_async
+from .spans import span
 
 BACKENDS = ("reference", "cuda", "auto")
 DEFAULT_WINDOW = 256
@@ -265,11 +266,12 @@ def stream_digest(indices) -> str:
     """SHA-256 of an index stream's bytes plus shape and dtype, over the
     stream as given (numpy). `cached_block_schedule` hashes int32 streams,
     so its keys equal the JAX package's for the same stream."""
-    arr = np.ascontiguousarray(np.asarray(indices))
-    h = hashlib.sha256()
-    h.update(str((arr.shape, arr.dtype.str)).encode())
-    h.update(arr.tobytes())
-    return h.hexdigest()
+    with span("repro.plan.digest", of="stream"):
+        arr = np.ascontiguousarray(np.asarray(indices))
+        h = hashlib.sha256()
+        h.update(str((arr.shape, arr.dtype.str)).encode())
+        h.update(arr.tobytes())
+        return h.hexdigest()
 
 
 def cached_block_schedule(
@@ -293,64 +295,67 @@ def cached_block_schedule(
     digest always, `matrix_digest` too when both sides carry one); a file
     that fails validation is quarantined and the plan rebuilt. A fresh plan
     is written back (best effort), and a memory hit writes through when its
-    file is missing. Disk hits count as ``was_cached=True``."""
-    dev = plan_device(indices, device)
-    stream = np.asarray(
-        indices.cpu().numpy() if torch.is_tensor(indices) else indices,
-        dtype=np.int32,
-    )
-    digest = stream_digest(stream)
-    key = (digest, window, block_rows, max_warps, str(dev))
-    store_kw = dict(window=window, block_rows=block_rows,
-                    max_warps=max_warps, matrix_digest=matrix_digest)
-    sched = _schedule_cache.get(key)
-    if sched is not None:
-        _write_through_if_missing(sched, digest, cache_dir=cache_dir,
-                                  **store_kw)
-        return sched, True
-    with _build_lock:
-        sched = _schedule_cache.get(key, count=False)
+    file is missing. Disk hits count as ``was_cached=True``. Recorded as a
+    `repro.plan.schedule` span, the stream's digest inside it."""
+    with span("repro.plan.schedule", stage="block_schedule"):
+        dev = plan_device(indices, device)
+        stream = np.asarray(
+            indices.cpu().numpy() if torch.is_tensor(indices) else indices,
+            dtype=np.int32,
+        )
+        digest = stream_digest(stream)
+        key = (digest, window, block_rows, max_warps, str(dev))
+        store_kw = dict(window=window, block_rows=block_rows,
+                        max_warps=max_warps, matrix_digest=matrix_digest)
+        sched = _schedule_cache.get(key)
         if sched is not None:
             _write_through_if_missing(sched, digest, cache_dir=cache_dir,
                                       **store_kw)
             return sched, True
-        cache_dir = schedule_store.resolve_cache_dir(cache_dir)
-        path = None
-        rebuilding = False
-        if cache_dir:
-            path = schedule_store.schedule_path(cache_dir, digest, **store_kw)
-            if os.path.exists(path):
-                try:
-                    sched = schedule_store.load_schedule(
-                        path,
-                        expect_stream_digest=digest,
-                        expect_window=window,
-                        expect_block_rows=block_rows,
-                        expect_matrix_digest=matrix_digest,
-                        device=dev,
-                    )
-                    _bump("disk_hits")
-                    _schedule_cache.put(key, sched)
-                    return sched, True
-                except schedule_store.ScheduleCacheMismatch:
-                    # Self-healing: move the broken file aside so the
-                    # rebuild below persists a fresh one.
-                    _bump("disk_rejects")
-                    schedule_store.quarantine(path)
-                    rebuilding = True
-        sched = trim_schedule_warps(build_block_schedule(
-            stream, window=window, block_rows=block_rows,
-            max_warps=max_warps, device=dev,
-        ))
-        _bump("built")
-        if rebuilding:
-            _bump("rebuilds")
-            faults.note_recovered("store_read")
-        _schedule_cache.put(key, sched)
-        if path is not None:
-            _save_best_effort(path, sched, stream_digest=digest,
-                              matrix_digest=matrix_digest)
-        return sched, False
+        with _build_lock:
+            sched = _schedule_cache.get(key, count=False)
+            if sched is not None:
+                _write_through_if_missing(sched, digest, cache_dir=cache_dir,
+                                          **store_kw)
+                return sched, True
+            cache_dir = schedule_store.resolve_cache_dir(cache_dir)
+            path = None
+            rebuilding = False
+            if cache_dir:
+                path = schedule_store.schedule_path(cache_dir, digest,
+                                                    **store_kw)
+                if os.path.exists(path):
+                    try:
+                        sched = schedule_store.load_schedule(
+                            path,
+                            expect_stream_digest=digest,
+                            expect_window=window,
+                            expect_block_rows=block_rows,
+                            expect_matrix_digest=matrix_digest,
+                            device=dev,
+                        )
+                        _bump("disk_hits")
+                        _schedule_cache.put(key, sched)
+                        return sched, True
+                    except schedule_store.ScheduleCacheMismatch:
+                        # Self-healing: move the broken file aside so the
+                        # rebuild below persists a fresh one.
+                        _bump("disk_rejects")
+                        schedule_store.quarantine(path)
+                        rebuilding = True
+            sched = trim_schedule_warps(build_block_schedule(
+                stream, window=window, block_rows=block_rows,
+                max_warps=max_warps, device=dev,
+            ))
+            _bump("built")
+            if rebuilding:
+                _bump("rebuilds")
+                faults.note_recovered("store_read")
+            _schedule_cache.put(key, sched)
+            if path is not None:
+                _save_best_effort(path, sched, stream_digest=digest,
+                                  matrix_digest=matrix_digest)
+            return sched, False
 
 
 def _save_best_effort(path, sched, *, stream_digest, matrix_digest) -> None:
@@ -439,13 +444,15 @@ def _sell_content_digest(sell: SELLMatrix) -> str:
     cached = getattr(sell, "_content_digest", None)
     if cached is not None:
         return cached
-    h = hashlib.sha256()
-    h.update(str((sell.n_rows, sell.n_cols, sell.slice_height)).encode())
-    for arr in (sell.slice_ptrs, sell.slice_widths, sell.colidx, sell.values):
-        a = np.ascontiguousarray(np.asarray(arr))
-        h.update(str((a.shape, a.dtype.str)).encode())
-        h.update(a.tobytes())
-    digest = h.hexdigest()
+    with span("repro.plan.digest", of="sell"):
+        h = hashlib.sha256()
+        h.update(str((sell.n_rows, sell.n_cols, sell.slice_height)).encode())
+        for arr in (sell.slice_ptrs, sell.slice_widths, sell.colidx,
+                    sell.values):
+            a = np.ascontiguousarray(np.asarray(arr))
+            h.update(str((a.shape, a.dtype.str)).encode())
+            h.update(a.tobytes())
+        digest = h.hexdigest()
     sell._content_digest = digest
     return digest
 
@@ -560,11 +567,12 @@ class SpMVEngine:
             if self._plan is None:
                 from .spmv import _sell_padded  # local: spmv routes via engine
 
-                ci, va, W = _sell_padded(self.sell)
-                ci_plan, va_plan, W_plan = pad_width(
-                    ci, va, multiple=self.plan_width_multiple
-                )
-                stream = np.ascontiguousarray(ci_plan.reshape(-1))
+                with span("repro.plan.layout", stage="pad"):
+                    ci, va, W = _sell_padded(self.sell)
+                    ci_plan, va_plan, W_plan = pad_width(
+                        ci, va, multiple=self.plan_width_multiple
+                    )
+                    stream = np.ascontiguousarray(ci_plan.reshape(-1))
                 self._plan = (ci_plan, va_plan, stream, W, W_plan)
             return self._plan
 
@@ -623,8 +631,9 @@ class SpMVEngine:
         with self._plan_lock:
             vals = self._values.get(vdt)
             if vals is None:
-                va_plan = self._ensure_plan()[1]
-                vals = torch.as_tensor(va_plan).to(vdt).to(self.device)
+                with span("repro.plan.schedule", stage="values"):
+                    va_plan = self._ensure_plan()[1]
+                    vals = torch.as_tensor(va_plan).to(vdt).to(self.device)
                 self._values[vdt] = vals
             return vals
 
@@ -769,8 +778,9 @@ class SpMVEngine:
         the cuda backend this runs the fused kernel (`kernels.sell_spmm`):
         the plan and the SELL values stream once per `k_tile` columns. This
         is ``dispatch(stage(X)).Y``: it returns without waiting for Y."""
-        self._check_rhs(X, 2, "matmat")
-        return self.dispatch(self.stage(X)).Y
+        with span("repro.matmat"):
+            self._check_rhs(X, 2, "matmat")
+            return self.dispatch(self.stage(X)).Y
 
     def matmat_vmapped(self, X) -> torch.Tensor:
         """The per-column baseline: `matvec` over each RHS column (on the
@@ -814,11 +824,12 @@ class SpMVEngine:
         completion event is recorded behind the kernel. No host sync."""
         _, mm = self._ensure_compiled()
         X = self._on_compute_stream(staged)
-        Y = mm(X)
-        if not X.is_cuda:
-            return Pending(Y)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        with span("repro.matmat.launch"):
+            Y = mm(X)
+            if not X.is_cuda:
+                return Pending(Y)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         return Pending(Y, done, staged)
 
     def _on_compute_stream(self, staged: Staged) -> torch.Tensor:

@@ -46,6 +46,7 @@ import torch
 
 from . import faults
 from .formats import CSRMatrix, SELLMatrix, csr_to_sell
+from .spans import span
 
 DEFAULT_MICROBATCH = 32
 DEFAULT_DEPTH = 2
@@ -64,9 +65,10 @@ def normalize_to_sell(
     for hot cache-lookup paths (`get_engine`), where construction on a miss
     validates anyway."""
     if isinstance(matrix, CSRMatrix):
-        matrix.validate()
         kw = {} if slice_height is None else {"slice_height": slice_height}
-        return csr_to_sell(matrix, width_multiple=width_multiple, **kw)
+        with span("repro.plan.layout", stage="csr_to_sell"):
+            matrix.validate()
+            return csr_to_sell(matrix, width_multiple=width_multiple, **kw)
     if isinstance(matrix, SELLMatrix):
         if slice_height is not None and slice_height != matrix.slice_height:
             raise ValueError(
@@ -82,7 +84,8 @@ def normalize_to_sell(
                 f"multiples of {width_multiple} (convert from CSR instead)"
             )
         if validate:
-            matrix.validate()
+            with span("repro.plan.layout", stage="validate_sell"):
+                matrix.validate()
         return matrix
     raise TypeError(f"expected CSRMatrix or SELLMatrix, got {type(matrix)}")
 

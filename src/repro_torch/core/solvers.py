@@ -31,6 +31,10 @@ copies its own starting state — b, x0, the tolerance, the damping — into
 those buffers before the first replay (the JAX package's rule that nothing
 per-call may be baked into a cached step).
 
+Each call records a `repro.solve` span (`core.spans`) with, on the
+``while`` loop, a `repro.solve.launch` span a block and a
+`repro.solve.probe` span a host read; nothing is recorded per step.
+
 Every solve reports `schedule_builds` (the delta of the global plan-build
 counter: 1 cold, 0 warm) and `matvecs`, the matvecs it ran: the iterations
 (plus cg's initial residual) and, on the ``while`` loop, the guarded steps
@@ -47,6 +51,7 @@ import torch
 
 from .engine import get_engine, schedule_cache_stats
 from .formats import CSRMatrix, SELLMatrix, coo_to_csr
+from .spans import span
 
 __all__ = [
     "SolveResult",
@@ -185,9 +190,11 @@ def _cond(state, metric: str, tol: str, maxiter: int) -> torch.Tensor:
 def _probe(state, metric: str, tol: str) -> Tuple[int, float, float]:
     """``(k, metric, tol)`` of the state in one host read (float32 and the
     int64 count convert to float64 exactly, so ``metric > tol`` and ``k <
-    maxiter`` decide on the host as they do on the device)."""
-    k, m, t = torch.stack([state[n].to(torch.float64)
-                           for n in ("k", metric, tol)]).tolist()
+    maxiter`` decide on the host as they do on the device). The host waits
+    here for the device: the `repro.solve.probe` span."""
+    with span("repro.solve.probe"):
+        k, m, t = torch.stack([state[n].to(torch.float64)
+                               for n in ("k", metric, tol)]).tolist()
     return int(k), m, t
 
 
@@ -236,11 +243,12 @@ def _drive(ex, key, state, *, metric: str, tol: str, update, maxiter: int,
     k, m, t = _probe(state, metric, tol)
     while k < maxiter and m > t:
         n = _next_block(k, m, t, maxiter, last)
-        if graphs is None:
-            for _ in range(n):
-                step(state, cond(state))
-        else:
-            graphs.run(n)
+        with span("repro.solve.launch", steps=n):
+            if graphs is None:
+                for _ in range(n):
+                    step(state, cond(state))
+            else:
+                graphs.run(n)
         steps += n
         last = (k, m)
         k, m, t = _probe(state, metric, tol)
@@ -265,7 +273,9 @@ class _GraphBlocks:
         if entry is None:
             graph = torch.cuda.CUDAGraph()
             try:
-                with CapturedLaunches() as launches, torch.cuda.graph(graph):
+                with span("repro.solve.capture", steps=n), \
+                        CapturedLaunches() as launches, \
+                        torch.cuda.graph(graph):
                     for _ in range(n):
                         self._step(self.static, self._cond(self.static))
             except Exception as exc:
@@ -295,7 +305,8 @@ def _graph_blocks(ex, key, state, *, cond, step):
         return graphs, graphs.static, 0
     if not bool(cond(state)):
         return None, state, 0
-    step(state, cond(state))
+    with span("repro.solve.capture", eager=True):
+        step(state, cond(state))
     cache[key] = graphs = _GraphBlocks(key, state, cond, step)
     return graphs, state, 1
 
@@ -344,7 +355,7 @@ def cg(
     `core.matrices.make_spd` / `core.matrices.spd` produce valid inputs).
     Converges when ||r||_2 <= tol * ||b||_2, capped at ``maxiter``
     (default n) iterations."""
-    with _BuildCounter() as bc:
+    with span("repro.solve", solver="cg"), _BuildCounter() as bc:
         ex = _resolve_operator(A, backend=backend, engine_kw=engine_kw)
         n = _require_square(ex, "cg")
         mode = _resolve_loop(loop, ex)
@@ -512,7 +523,7 @@ def jacobi(
     """(Weighted) Jacobi: x += omega * D^-1 (b - A x). Converges for
     strictly diagonally dominant A (`core.matrices.spd`). The residual in
     the trace/result is that of the iterate *entering* each step."""
-    with _BuildCounter() as bc:
+    with span("repro.solve", solver="jacobi"), _BuildCounter() as bc:
         ex = _resolve_operator(A, backend=backend, engine_kw=engine_kw)
         n = _require_square(ex, "jacobi")
         mode = _resolve_loop(loop, ex)
@@ -626,12 +637,13 @@ def transition_matrix(adj: CSRMatrix) -> CSRMatrix:
             f"{adj.n_rows}x{adj.n_cols}"
         )
     n = adj.n_rows
-    outdeg = np.diff(adj.indptr)
-    row_of = np.repeat(np.arange(n), outdeg)
-    vals = 1.0 / outdeg[row_of]
-    return coo_to_csr(
-        n, n, adj.indices.astype(np.int64), row_of.astype(np.int64), vals
-    )
+    with span("repro.plan.layout", stage="transition"):
+        outdeg = np.diff(adj.indptr)
+        row_of = np.repeat(np.arange(n), outdeg)
+        vals = 1.0 / outdeg[row_of]
+        return coo_to_csr(
+            n, n, adj.indices.astype(np.int64), row_of.astype(np.int64), vals
+        )
 
 
 def pagerank(
@@ -652,7 +664,7 @@ def pagerank(
     y = damping * M x; y += (1 - sum(y)) / n, so sum(x) stays 1 and the
     SpMV is the whole iteration. Converges when the L1 iterate delta drops
     below ``tol``."""
-    with _BuildCounter() as bc:
+    with span("repro.solve", solver="pagerank"), _BuildCounter() as bc:
         if isinstance(A, CSRMatrix):
             ex = get_engine(
                 transition_matrix(A), backend=backend, **engine_kw
@@ -767,7 +779,7 @@ def power_iteration(
     quotient; `SolveResult.eigenvalue` carries lam. Deterministic default
     start (normalized ones); pass ``x0`` if that is orthogonal to the
     dominant eigenvector."""
-    with _BuildCounter() as bc:
+    with span("repro.solve", solver="power_iteration"), _BuildCounter() as bc:
         ex = _resolve_operator(A, backend=backend, engine_kw=engine_kw)
         n = _require_square(ex, "power_iteration")
         mode = _resolve_loop(loop, ex)

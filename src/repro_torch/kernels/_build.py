@@ -29,6 +29,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.spans import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "libsell.so"
@@ -90,6 +92,13 @@ def build() -> Path:
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
+    with span("repro.kernel.build"):
+        _compile(out_dir, lib_path)
+    return lib_path
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
+    """nvcc over every source into `out_dir` (renamed in when complete)."""
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=".tmp-", dir=BUILD_ROOT))
@@ -136,7 +145,6 @@ def build() -> Path:
     finally:
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
-    return lib_path
 
 
 def build_log() -> str:

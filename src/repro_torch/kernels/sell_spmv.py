@@ -51,6 +51,7 @@ from repro_torch.core.coalescer import (
     packable_schedule,
     resolve_schedule,
 )
+from repro_torch.core.spans import span
 
 from . import _build
 
@@ -160,35 +161,37 @@ def build_device_plan(
             f"schedule covers {schedule.n_windows} windows, which does not "
             f"tile {n_slices} slices"
         )
-    n_chunks = schedule.n_windows // n_slices
-    use_packed = resolve_packing(packed, schedule)
-    shape = (n_slices, n_chunks, window)
-    ew = schedule.elem_warp.to(torch.int32).reshape(shape)
-    eo = schedule.elem_offset.to(torch.int32).reshape(shape)
-    if use_packed:
-        # Both halves fit 16 bits; warp >= 2**15 carries into the int32 sign
-        # bit. Pack in int64 and wrap explicitly to the two's-complement word.
-        word = (ew.to(torch.int64) << 16) | eo.to(torch.int64)
-        elem_meta = torch.where(word >= 2**31, word - 2**32, word).to(
-            torch.int32
+    with span("repro.plan.schedule", stage="device_plan"):
+        n_chunks = schedule.n_windows // n_slices
+        use_packed = resolve_packing(packed, schedule)
+        shape = (n_slices, n_chunks, window)
+        ew = schedule.elem_warp.to(torch.int32).reshape(shape)
+        eo = schedule.elem_offset.to(torch.int32).reshape(shape)
+        if use_packed:
+            # Both halves fit 16 bits; warp >= 2**15 carries into the int32
+            # sign bit. Pack in int64 and wrap explicitly to the
+            # two's-complement word.
+            word = (ew.to(torch.int64) << 16) | eo.to(torch.int64)
+            elem_meta = torch.where(word >= 2**31, word - 2**32, word).to(
+                torch.int32
+            )
+        else:
+            elem_meta = torch.stack([ew, eo], dim=2)
+        tags = torch.where(
+            schedule.tags == SENTINEL, torch.zeros_like(schedule.tags),
+            schedule.tags,
         )
-    else:
-        elem_meta = torch.stack([ew, eo], dim=2)
-    tags = torch.where(
-        schedule.tags == SENTINEL, torch.zeros_like(schedule.tags),
-        schedule.tags,
-    )
-    return DevicePlan(
-        tags=tags.to(torch.int32).contiguous(),
-        elem_meta=elem_meta.contiguous(),
-        window=window,
-        block_rows=int(schedule.block_rows),
-        cols_per_chunk=int(cols_per_chunk),
-        slice_height=int(slice_height),
-        n_slices=int(n_slices),
-        n_chunks=int(n_chunks),
-        packed=use_packed,
-    )
+        return DevicePlan(
+            tags=tags.to(torch.int32).contiguous(),
+            elem_meta=elem_meta.contiguous(),
+            window=window,
+            block_rows=int(schedule.block_rows),
+            cols_per_chunk=int(cols_per_chunk),
+            slice_height=int(slice_height),
+            n_slices=int(n_slices),
+            n_chunks=int(n_chunks),
+            packed=use_packed,
+        )
 
 
 def resolve_device_plan(
