@@ -18,8 +18,10 @@
     `kernels.sell_spmm` for matmat) — on a CPU engine their plain versions.
     ``"auto"`` resolves to cuda on a CUDA engine and to the reference
     elsewhere. The kernels consume SELL in ``cols_per_chunk``-wide chunks, so
-    the planner pads the width up to a multiple of it and derives the window
-    (``cols_per_chunk * slice_height``) before the schedule is built.
+    the planner rounds each slice's width up to a multiple of it and derives
+    the window (``cols_per_chunk * slice_height``) before the schedule is
+    built; the cuda plan keeps every slice at its own width, and the
+    reference plan pads every slice to the widest.
   * Device — an engine runs on the card (``device=None`` means ``"cuda"``)
     unless the caller asks for the CPU with ``device="cpu"``; a missing card
     raises instead of running elsewhere.
@@ -56,7 +58,7 @@ from .formats import CSRMatrix, SELLMatrix
 from .perfmodel import DEFAULT_HW, HWConfig, matmat_spmv_perf, spmv_perf, \
     streaming_spmv_perf
 from .runtime import Pending, Staged, normalize_to_sell, \
-    on_compute_stream, pad_width, resolve_device, stage_async
+    on_compute_stream, pad_slices, pad_width, resolve_device, stage_async
 from .spans import span
 
 BACKENDS = ("reference", "cuda", "auto")
@@ -461,15 +463,16 @@ class SpMVEngine:
     """Plan-once / execute-many SpMV over the coalesced data path.
 
     ``matrix`` may be CSR (converted to SELL here) or an already-built SELL.
-    Planning is lazy: the padded plan, the schedule and the `DevicePlan`
+    Planning is lazy: the plan's layout, the schedule and the `DevicePlan`
     are built on first execution (or `plan_report`), on ``device``.
 
     ``backend``: ``"reference"`` (eager torch schedule-gather oracle),
     ``"cuda"`` (the SELL kernels; their plain versions on a CPU engine) or
     ``"auto"`` (cuda on a CUDA engine, reference on a CPU one). The kernels
-    consume ``cols_per_chunk`` SELL columns per chunk: the padded width is
-    rounded up to a multiple of it and the window is ``cols_per_chunk *
-    slice_height``. ``k_tile`` is the JAX fused matmat kernel's RHS tile
+    consume ``cols_per_chunk`` SELL columns per chunk: each slice's width is
+    rounded up to a multiple of it, the window is ``cols_per_chunk *
+    slice_height``, and the kernels walk each slice's own windows, cut into
+    balanced work items (`kernels.sell_spmv.DevicePlan`). ``k_tile`` is the JAX fused matmat kernel's RHS tile
     width, kept in signatures and keys (the Hopper kernel picks its own
     column tile from k: `kernels.sell_spmv.launch_config`);
     ``matmat_mode`` routes `matmat` (``"auto"``: fused on cuda, per-column
@@ -547,6 +550,7 @@ class SpMVEngine:
 
         self._plan_lock = threading.RLock()
         self._plan = None  # (ci_plan, va_plan, stream, W_real, W_plan)
+        self.slice_windows = None  # windows of each slice (cuda plans)
         self._schedule: Optional[BlockSchedule] = None
         self.plan_cached: Optional[bool] = None
         self._device_plan = None  # kernels.sell_spmv.DevicePlan (cuda only)
@@ -559,22 +563,46 @@ class SpMVEngine:
     # -- planning ----------------------------------------------------------
 
     def _ensure_plan(self):
-        """Width-aware plan geometry: the padded SELL arrays, widened to
-        `plan_width_multiple` (zero columns), and the index stream the
-        executor consumes. Returns ``(ci_plan, va_plan, stream, W_real,
-        W_plan)`` with the arrays shaped (n_slices, W_plan, H), on the host."""
+        """Width-aware plan geometry and the index stream the executor
+        consumes. Returns ``(ci_plan, va_plan, stream, W_real, W_plan)``,
+        on the host. The reference backend pads every slice to the widest,
+        W_real, then to `plan_width_multiple` (zero columns): arrays (n_slices,
+        W_plan, H). The cuda backend keeps each slice at its own width,
+        rounded up to `plan_width_multiple` (`runtime.pad_slices`): the
+        slices' storage end to end, the values shaped (n_windows,
+        cols_per_chunk, H), one window a row, and `slice_windows` each
+        slice's windows; W_plan is then the widest slice's."""
         with self._plan_lock:
             if self._plan is None:
-                from .spmv import _sell_padded  # local: spmv routes via engine
-
                 with span("repro.plan.layout", stage="pad"):
-                    ci, va, W = _sell_padded(self.sell)
-                    ci_plan, va_plan, W_plan = pad_width(
-                        ci, va, multiple=self.plan_width_multiple
-                    )
-                    stream = np.ascontiguousarray(ci_plan.reshape(-1))
-                self._plan = (ci_plan, va_plan, stream, W, W_plan)
+                    if self.backend_resolved == "cuda":
+                        self._plan = self._ragged_plan()
+                    else:
+                        from .spmv import _sell_padded  # spmv routes via engine
+
+                        ci, va, W = _sell_padded(self.sell)
+                        ci_plan, va_plan, W_plan = pad_width(
+                            ci, va, multiple=self.plan_width_multiple
+                        )
+                        stream = np.ascontiguousarray(ci_plan.reshape(-1))
+                        self._plan = (ci_plan, va_plan, stream, W, W_plan)
             return self._plan
+
+    def _ragged_plan(self):
+        """The cuda backend's `_ensure_plan`: each slice at its own width."""
+        sell, C = self.sell, self.cols_per_chunk
+        H = sell.slice_height
+        ci, va, widths = pad_slices(sell, multiple=self.plan_width_multiple)
+        if np.any(widths % C):
+            raise ValueError(
+                f"backend='cuda' walks windows of {C} columns, but "
+                f"plan_width_multiple={self.plan_width_multiple} is not a "
+                f"multiple of cols_per_chunk={C}"
+            )
+        self.slice_windows = widths // C
+        W = int(sell.slice_widths.max()) if sell.n_slices else 1
+        W_plan = int(widths.max()) if sell.n_slices else C
+        return ci, va.reshape(-1, C, H), ci, W, W_plan
 
     @property
     def schedule(self) -> BlockSchedule:
@@ -673,6 +701,7 @@ class SpMVEngine:
             plan = build_device_plan(
                 sched, n_slices=n_slices, cols_per_chunk=self.cols_per_chunk,
                 slice_height=H, packed=self.packed,
+                slice_windows=self.slice_windows,
             )
             self._device_plan = plan
             k_tile = self.k_tile
@@ -900,6 +929,15 @@ class SpMVEngine:
             },
         }
         if self.backend_resolved == "cuda":
+            plan = self.device_plan
+            # The kernels' walk: each slice's own windows, cut into items.
+            report["work"] = {
+                "n_windows": plan.n_windows,
+                "split_slices": plan.split_slices,
+                "items": plan.n_items,
+                "item_share": plan.item_share,
+                "partial_rows": plan.n_partials,
+            }
             packed_resolved = resolve_packed(self.packed, sched)
             bytes_packed = schedule_meta_bytes(sched, packed=True)
             bytes_unpacked = schedule_meta_bytes(sched, packed=False)

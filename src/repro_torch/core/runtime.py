@@ -111,6 +111,37 @@ def pad_width(
     return ci_plan, va_plan, W_plan
 
 
+def pad_slices(
+    sell: SELLMatrix, *, multiple: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each slice of `sell` at its own width, rounded up to a multiple of
+    ``multiple`` columns (at least one: a slice of width 0 gets one zero
+    chunk), the new columns colidx 0 / value 0 after the slice's own.
+    Returns ``(colidx, values, widths)``: the slices' storage end to end,
+    column-major within each slice as `SELLMatrix` keeps it, and the new
+    widths; the arrays pass through where every width already fits."""
+    m = int(multiple)
+    if m < 1:
+        raise ValueError(f"width multiple must be >= 1, got {multiple}")
+    H = sell.slice_height
+    widths = np.asarray(sell.slice_widths, dtype=np.int64)
+    new = np.maximum(-(-widths // m) * m, m)
+    if np.array_equal(new, widths):
+        return sell.colidx, sell.values, new
+    ptr = np.zeros(widths.size + 1, dtype=np.int64)
+    ptr[1:] = np.cumsum(new * H)
+    colidx = np.zeros(int(ptr[-1]), dtype=sell.colidx.dtype)
+    values = np.zeros(int(ptr[-1]), dtype=sell.values.dtype)
+    # an element keeps its place within its slice: column-major (width, H)
+    # storage puts the new columns after the old ones
+    shift = ptr[:-1] - np.asarray(sell.slice_ptrs, dtype=np.int64)[:-1]
+    dst = np.arange(sell.nnz_padded, dtype=np.int64) + np.repeat(
+        shift, widths * H)
+    colidx[dst] = sell.colidx
+    values[dst] = sell.values
+    return colidx, values, new
+
+
 def column_groups(k: int, n_groups: int) -> List[slice]:
     """Balanced contiguous split of `k` RHS columns into at most `n_groups`
     non-empty slices."""

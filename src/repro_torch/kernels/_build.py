@@ -40,12 +40,12 @@ COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Argument lists of the C launch functions: csrc/sell_spmv.cu and
-# sell_spmm.cu take values, x/X, tags, meta, y/Y, then the ints, then the
-# stream; csrc/coalesced_gather.cu takes table, tags, meta, out, its work
-# queue, the ints, the stream.
+# sell_spmm.cu take values, x/X, tags, meta, items, combine, y/Y, the
+# partial rows, then the ints, then the stream; csrc/coalesced_gather.cu
+# takes table, tags, meta, out, its work queue, the ints, the stream.
 _SIGNATURES = {
-    "sell_spmv_launch": [_P] * 5 + [_I] * 16 + [_P],
-    "sell_spmm_launch": [_P] * 5 + [_I] * 18 + [_P],
+    "sell_spmv_launch": [_P] * 8 + [_I] * 19 + [_P],
+    "sell_spmm_launch": [_P] * 8 + [_I] * 21 + [_P],
     "coalesced_gather_launch": [_P] * 5 + [_I] * 20 + [_P],
     "sell_max_dynamic_smem": [_I, ctypes.POINTER(_I)],
 }

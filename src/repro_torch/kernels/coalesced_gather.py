@@ -35,9 +35,10 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.coalescer import BlockSchedule, resolve_schedule
+from repro_torch.core.spans import span
 
 from . import _build
-from .sell_spmv import DevicePlan, build_device_plan, plan_gather
+from .sell_spmv import DevicePlan, lower_schedule, plan_gather
 
 #: Threads of one gather block (the bulk path's warp 0 drives the ring).
 _THREADS = 256
@@ -82,14 +83,16 @@ def build_gather_plan(
 ) -> DevicePlan:
     """Lower a flat-stream `BlockSchedule` to the gather kernel's `DevicePlan`
     (on the schedule's device): one chunk per window, ``n_slices =
-    n_windows``, ``cols_per_chunk = 1``, ``slice_height = window``."""
-    return build_device_plan(
-        schedule,
-        n_slices=schedule.n_windows,
-        cols_per_chunk=1,
-        slice_height=schedule.window,
-        packed=packed,
-    )
+    n_windows``, ``cols_per_chunk = 1``, ``slice_height = window``, and
+    no work list (`sell_spmv.lower_schedule`: device operations alone)."""
+    with span("repro.plan.schedule", stage="device_plan"):
+        return lower_schedule(
+            schedule,
+            n_slices=schedule.n_windows,
+            cols_per_chunk=1,
+            slice_height=schedule.window,
+            packed=packed,
+        )
 
 
 def resolve_gather_plan(
@@ -412,10 +415,8 @@ def _check_kernel_inputs(table: torch.Tensor, plan: DevicePlan) -> None:
         raise ValueError(
             f"gather plan lives on {plan.device}, the table on {table.device}"
         )
-    meta_shape = (plan.n_slices, 1) + (
-        (plan.window,) if plan.packed else (2, plan.window))
-    for arr, shape in ((plan.tags, (plan.n_slices, plan.max_warps)),
-                       (plan.elem_meta, meta_shape)):
+    for arr, shape in ((plan.tags, (plan.n_windows, plan.max_warps)),
+                       (plan.elem_meta, plan.meta_shape)):
         if (arr.dtype != torch.int32 or not arr.is_contiguous()
                 or tuple(arr.shape) != shape):
             raise ValueError(

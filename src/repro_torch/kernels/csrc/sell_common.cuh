@@ -1,43 +1,58 @@
 // The one device body of the SELL SpMV and SpMM kernels, and its launcher.
 //
-// Plan layout (kernels/sell_spmv.py: DevicePlan), window w = s * n_chunks + c
-// of slice s, chunk c; element e = cc * H + h of a window is SELL column
-// c * C + cc, row h of the slice:
+// Plan layout (kernels/sell_spmv.py: DevicePlan). The windows of every slice
+// lie end to end, each slice at its own width (a ragged plan) or all at one
+// (a uniform plan); element e = cc * H + h of a window is column cc of its
+// chunk, row h of its slice:
 //   tags   (n_windows, max_warps) int32   wide-block id of each warp
 //   meta   packed   (n_windows, window) int32      (warp << 16) | offset
 //          unpacked (n_windows, 2, window) int32   lane 0 warp, lane 1 offset
-//   values (n_windows, window) float | bf16        (n_slices, W, H) in memory
+//   values (n_windows, window) float | bf16
+//   items  (n_items, 4) int32   (slice, first window, windows, partial row)
+//   combine (n_split, 3) int32  (slice, first partial row, partial rows)
 //
 // Y[s*H + h, j] = sum over the slice's elements of
 // value * X[tag * block_rows + offset, j], X row-major (n_cols, k). SpMV is
 // the instance NC = 1, k = 1 (x a column, y a vector).
 //
-// Geometry (kernels/sell_spmv.py: launch_config). A block takes
-// `slices_per_block` slices at a time and one column tile of `col_tile` =
-// NC * quads columns of X; a grid column exists only where k > col_tile, so
-// at k <= col_tile (128 for SpMM) values and metadata are read once per
-// launch. Blocks are persistent: as many as fit on the card, block b taking
-// slice groups b, b + gridDim.x, ... Thread (h, q) of a slice owns row h and
-// NC columns: float4 groups q, q + quads, ... of the tile, so the 8 threads
-// of a quarter-warp that share a row read 128 contiguous bytes of shared
+// Work. The slices' windows are cut into items: a slice is one item unless
+// it holds more windows than a balanced share, and then several, heaviest
+// items first in the list. An item of a whole slice stores the slice's rows
+// of Y; an item of a cut slice stores its sums as one partial row of the
+// scratch buffer P (n_partials, H, k), and `sell_combine`, launched after
+// the kernel on the same stream, adds each cut slice's partial rows in
+// order: no float atomics, the same sums in the same order every launch.
+//
+// Geometry (kernels/sell_spmv.py: launch_config). A block has
+// `slices_per_block` slots and one column tile of `col_tile` = NC * quads
+// columns of X; a grid column exists only where k > col_tile, so at k <=
+// col_tile (128 for SpMM) values and metadata are read once per launch.
+// Blocks are persistent: as many as fit on the card, slot z of block b
+// (slot b * slices_per_block + z of S) walking items slot, slot + S, ...:
+// adjacent slots take adjacent items of the list, of near-equal size, so a
+// block's slots finish together. Thread (h, q) of a slot owns row h and NC
+// columns: float4 groups q, q + quads, ... of the tile, so the 8 threads of
+// a quarter-warp that share a row read 128 contiguous bytes of shared
 // memory.
 //
-// Pipeline. A block's work is a sequence of steps, one per (slice group,
-// chunk, group of `group` warps); group = max_warps unless a window's wide
-// blocks exceed the shared-memory budget, and then each chunk takes several
-// steps. Each step has a stage in a ring of `depth` (= buffer_depth) stages
-// in shared memory, which runs on from one slice group to the next: the
-// step's wide blocks of X (each unique tag's (block_rows, col_tile) tile,
-// copied once: the coalesced wide fetch), its values and its metadata words,
-// all copied with cp.async. While step i computes, the copies of steps
-// i+1 .. i+depth-1 are in flight; one barrier a step (two at depth 1, which
-// does not overlap). Values and metadata words are read from the stage once
-// per row: the NC threads of a row read the same shared word (a broadcast).
-// An element outside the step's group of warps reads a zero row with a
-// zero value, without a branch. Rows of X outside [0, n_cols) are
-// zero-filled, columns past k are never copied and their sums never stored,
-// so a malformed tag cannot read outside X; X is reached only through tags
-// and metadata.
+// Pipeline. A slot's work is a sequence of steps, one per (item, window,
+// group of `group` warps); group = max_warps unless a window's wide blocks
+// exceed the shared-memory budget, and then each window takes several
+// steps. Each step has a stage in the slot's ring of `depth` (=
+// buffer_depth) stages in shared memory, which runs on from one item to the
+// next: the step's wide blocks of X (each unique tag's (block_rows,
+// col_tile) tile, copied once: the coalesced wide fetch), its values and
+// its metadata words, all copied with cp.async. While step i computes, the
+// copies of steps i+1 .. i+depth-1 are in flight; one barrier a step (two
+// at depth 1, which does not overlap), which also ends the block's walk
+// once none of its slots has a step left. Values and metadata words are
+// read from the stage once per row: the NC threads of a row read the same
+// shared word (a broadcast). An element outside the step's group of warps
+// reads a zero row with a zero value, without a branch. Rows of X outside
+// [0, n_cols) are zero-filled, columns past k are never copied and their
+// sums never stored, so a malformed tag cannot read outside X; X is reached
+// only through tags and metadata, and an item outside the plan's windows,
+// slices or partial rows copies and stores nothing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,7 +69,8 @@ constexpr int kMaxDepth = 8;
 constexpr int kMaxDevices = 64;
 
 struct Geometry {
-  int n_slices, n_chunks, C, H, max_warps, block_rows, n_cols, k;
+  int n_slices, n_items, n_windows, n_split, n_partials;
+  int C, H, max_warps, block_rows, n_cols, k;
   int quads, col_tile, slices_per_block, group, depth;
   int val_unit, meta_unit;  // bytes a copy moves: 16, 4 (cp.async) or 2
 };
@@ -239,16 +255,28 @@ __device__ __forceinline__ void stage_wide_blocks(
   }
 }
 
-// Where a step of a block's walk is: slice, chunk, group of warps.
+// Where a step of a slot's walk is: the item (its index in the list, its
+// slice and partial row), the window and the group of warps. `item` past
+// the list ends the walk.
 struct Cursor {
-  int s, c, gi;
-  __device__ __forceinline__ void advance(int n_groups, int n_chunks,
-                                          int slice_stride) {
+  int item, w, end, gi, s, part;
+  __device__ __forceinline__ void load(const int4* __restrict__ items,
+                                       int n_items) {
+    if (item >= n_items) return;
+    const int4 it = __ldg(items + item);
+    s = it.x;
+    w = it.y;
+    end = it.y + it.z;
+    part = it.w;
+  }
+  __device__ __forceinline__ void advance(const int4* __restrict__ items,
+                                          int n_items, int n_groups,
+                                          int stride) {
     if (++gi < n_groups) return;
     gi = 0;
-    if (++c < n_chunks) return;
-    c = 0;
-    s += slice_stride;
+    if (++w < end) return;
+    item += stride;
+    load(items, n_items);
   }
 };
 
@@ -256,11 +284,12 @@ template <typename VT, bool PACKED, int NC, int XUNIT>
 __global__ void __launch_bounds__(1024)
     sell_kernel(const VT* __restrict__ values, const float* __restrict__ X,
                 const int32_t* __restrict__ tags,
-                const int32_t* __restrict__ meta, float* __restrict__ Y,
-                const Geometry g) {
+                const int32_t* __restrict__ meta,
+                const int4* __restrict__ items, float* __restrict__ Y,
+                float* __restrict__ P, const Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
   static_assert(NC == 1 || NC % 4 == 0, "NC is 1 or a multiple of 4");
-  const int tps = g.H * g.quads;  // threads a slice
+  const int tps = g.H * g.quads;  // threads a slot
   const int z = threadIdx.x / tps;
   const int lt = threadIdx.x - z * tps;
   const int h = lt / g.quads;
@@ -272,35 +301,30 @@ __global__ void __launch_bounds__(1024)
   int tile_bytes, vals_bytes, stage_bytes;
   stage_layout<VT, PACKED>(g, tile_bytes, vals_bytes, stage_bytes);
   const int n_groups = (g.max_warps + g.group - 1) / g.group;
-  // The block walks slice groups blockIdx.x, + gridDim.x, ...; each takes
-  // `sps` steps, and the ring runs on across them.
-  const int sps = g.n_chunks * n_groups;
-  const int n_sg = (g.n_slices + g.slices_per_block - 1) / g.slices_per_block;
-  const int my_sg = static_cast<int>(blockIdx.x) < n_sg
-                        ? (n_sg - 1 - blockIdx.x) / gridDim.x + 1
-                        : 0;
-  const int n_steps = my_sg * sps;
   float* zero_row = reinterpret_cast<float*>(smem);
   for (int i = threadIdx.x; i < g.col_tile; i += blockDim.x) zero_row[i] = 0.f;
   unsigned char* ring = smem + zero_row_bytes(g) +
                         static_cast<size_t>(z) * g.depth * stage_bytes;
   const CopyGrid grid = copy_grid<XUNIT>(g, kc, lt, tps);
 
-  // Step cursors (slice, chunk, group of warps), one for the copies and
-  // one for the compute, each advanced a step at a time.
-  const int slice_stride = gridDim.x * g.slices_per_block;
-  Cursor fetch{static_cast<int>(blockIdx.x) * g.slices_per_block + z, 0, 0};
+  // Step cursors, one for the copies and one for the compute, each
+  // advanced a step at a time over the slot's items.
+  const int stride = gridDim.x * g.slices_per_block;
+  Cursor fetch{static_cast<int>(blockIdx.x) * g.slices_per_block + z, 0, 0,
+               0, 0, -1};
+  fetch.load(items, g.n_items);
   Cursor work = fetch;
-  int issued = 0, fetch_slot = 0, work_slot = 0;
+  int fetch_slot = 0, work_slot = 0;
   auto issue = [&]() {
     const Cursor at = fetch;
     unsigned char* slot = ring + fetch_slot * stage_bytes;
-    fetch.advance(n_groups, g.n_chunks, slice_stride);
     if (++fetch_slot == g.depth) fetch_slot = 0;
-    if (issued++ >= n_steps || at.s >= g.n_slices) return;
-    const int s = at.s, c = at.c, g0 = at.gi * g.group;
-    const int g1 = min(g0 + g.group, g.max_warps);
-    const long long w = static_cast<long long>(s) * g.n_chunks + c;
+    if (at.item >= g.n_items) return;
+    fetch.advance(items, g.n_items, n_groups, stride);
+    if (static_cast<unsigned>(at.w) >= static_cast<unsigned>(g.n_windows))
+      return;
+    const int g0 = at.gi * g.group, g1 = min(g0 + g.group, g.max_warps);
+    const long long w = at.w;
     copy_bytes(slot + tile_bytes,
                reinterpret_cast<const unsigned char*>(values + w * window),
                window * static_cast<int>(sizeof(VT)), g.val_unit, lt, tps);
@@ -311,9 +335,17 @@ __global__ void __launch_bounds__(1024)
     stage_wide_blocks<XUNIT>(reinterpret_cast<float*>(slot), X,
                              tags + w * g.max_warps, g0, g1, g, grid, col0);
   };
-  auto store = [&](int s, const float* acc) {
-    if (s >= g.n_slices) return;
-    float* yrow = Y + (static_cast<long long>(s) * g.H + h) * g.k;
+  // A whole slice's rows go to Y, a cut slice's item to its partial row.
+  auto store = [&](int s, int part, const float* acc) {
+    float* yrow;
+    if (part < 0) {
+      if (static_cast<unsigned>(s) >= static_cast<unsigned>(g.n_slices))
+        return;
+      yrow = Y + (static_cast<long long>(s) * g.H + h) * g.k;
+    } else {
+      if (part >= g.n_partials) return;
+      yrow = P + (static_cast<long long>(part) * g.H + h) * g.k;
+    }
     if constexpr (NC == 1) {
       yrow[col0] = acc[0];
     } else {
@@ -336,33 +368,30 @@ __global__ void __launch_bounds__(1024)
   float acc[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) acc[i] = 0.0f;
-  if (sps == 0) {  // no columns at all: every row is 0
-    for (int i = 0; i < my_sg; ++i)
-      store((blockIdx.x + i * gridDim.x) * g.slices_per_block + z, acc);
-    return;
-  }
-
   for (int i = 0; i + 1 < g.depth; ++i) {
     issue();
     cp_async_commit();
   }
-  for (int j = 0; j < n_steps; ++j) {
+  for (;;) {
     if (g.depth == 1) {  // no overlap: the one slot is free after a barrier
       __syncthreads();
       issue();
       cp_async_commit();
     }
     cp_async_wait(g.depth == 1 ? 0 : g.depth - 2);
-    __syncthreads();  // step j's stage landed; step j - 1's slot is free
+    // The step's stage landed and the previous step's slot is free; the
+    // walk ends when no slot of the block has a step left.
+    if (!__syncthreads_or(work.item < g.n_items)) break;
     if (g.depth > 1) {
-      issue();  // step j + depth - 1
+      issue();  // the step depth - 1 ahead
       cp_async_commit();
     }
-    const int s = work.s, c = work.c, g0 = work.gi * g.group;
+    const Cursor at = work;
     const unsigned char* slot = ring + work_slot * stage_bytes;
-    work.advance(n_groups, g.n_chunks, slice_stride);
     if (++work_slot == g.depth) work_slot = 0;
-    if (s >= g.n_slices) continue;
+    if (at.item >= g.n_items) continue;
+    work.advance(items, g.n_items, n_groups, stride);
+    const int g0 = at.gi * g.group;
     // Element e = cc * H + h of the stage; one outside the step's group of
     // warps (or, in a malformed plan, outside its block) reads the zero
     // row with a zero value instead.
@@ -397,8 +426,8 @@ __global__ void __launch_bounds__(1024)
         }
       }
     }
-    if (c == g.n_chunks - 1 && g0 + g.group >= g.max_warps) {
-      store(s, acc);  // the slice's last step
+    if (at.w == at.end - 1 && g0 + g.group >= g.max_warps) {
+      store(at.s, at.part, acc);  // the item's last step
 #pragma unroll
       for (int i = 0; i < NC; ++i) acc[i] = 0.0f;
     }
@@ -406,10 +435,47 @@ __global__ void __launch_bounds__(1024)
   cp_async_wait(0);
 }
 
+// Y's rows of each cut slice: the sum of its partial rows, in order.
+// Thread i of the grid-stride loop takes element r of the rows' H * k.
+__global__ void __launch_bounds__(256)
+    sell_combine(const float* __restrict__ P,
+                 const int32_t* __restrict__ combine, float* __restrict__ Y,
+                 const Geometry g) {
+  const long long row_elems = static_cast<long long>(g.H) * g.k;
+  const long long total = row_elems * g.n_split;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long j = i / row_elems, r = i - j * row_elems;
+    const int s = __ldg(combine + 3 * j), p0 = __ldg(combine + 3 * j + 1),
+              n = __ldg(combine + 3 * j + 2);
+    if (static_cast<unsigned>(s) >= static_cast<unsigned>(g.n_slices) ||
+        p0 < 0 || n < 0 || p0 + n > g.n_partials)
+      continue;
+    // in order, four loads in flight at a time
+    float sum = 0.0f;
+    int p = p0;
+#pragma unroll 1
+    for (; p + 4 <= p0 + n; p += 4) {
+      const float a = P[p * row_elems + r], b = P[(p + 1) * row_elems + r],
+                  c = P[(p + 2) * row_elems + r],
+                  d = P[(p + 3) * row_elems + r];
+      sum += a;
+      sum += b;
+      sum += c;
+      sum += d;
+    }
+    for (; p < p0 + n; ++p) sum += P[p * row_elems + r];
+    Y[s * row_elems + r] = sum;
+  }
+}
+
 template <typename VT, bool PACKED, int NC, int XUNIT>
 cudaError_t launch_as(const void* values, const void* X, const void* tags,
-                      const void* meta, void* Y, const Geometry& g,
-                      int smem_bytes, cudaStream_t stream) {
+                      const void* meta, const void* items,
+                      const void* combine, void* Y, void* P,
+                      const Geometry& g, int smem_bytes,
+                      cudaStream_t stream) {
   int tile_bytes, vals_bytes, stage_bytes;
   stage_layout<VT, PACKED>(g, tile_bytes, vals_bytes, stage_bytes);
   if (smem_bytes <
@@ -434,7 +500,7 @@ cudaError_t launch_as(const void* values, const void* X, const void* tags,
     }
   }
   // Persistent blocks: as many as fit on the card at once, each walking
-  // slice groups (a smaller grid where there are fewer).
+  // its slots' items (a smaller grid where there are fewer).
   const int threads = g.slices_per_block * g.H * g.quads;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
@@ -442,13 +508,23 @@ cudaError_t launch_as(const void* values, const void* X, const void* tags,
                                                         threads, smem_bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int n_sg = (g.n_slices + g.slices_per_block - 1) / g.slices_per_block;
+  const int n_groups =
+      (g.n_items + g.slices_per_block - 1) / g.slices_per_block;
   const dim3 block(threads);
-  const dim3 grid(min(n_sg, per_sm * sms),
+  const dim3 grid(min(n_groups, per_sm * sms),
                   (g.k + g.col_tile - 1) / g.col_tile);
   kernel<<<grid, block, smem_bytes, stream>>>(
       static_cast<const VT*>(values), static_cast<const float*>(X),
       static_cast<const int32_t*>(tags), static_cast<const int32_t*>(meta),
+      static_cast<const int4*>(items), static_cast<float*>(Y),
+      static_cast<float*>(P), g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || g.n_split == 0) return err;
+  const long long total = static_cast<long long>(g.n_split) * g.H * g.k;
+  const int combine_blocks =
+      static_cast<int>(min(static_cast<long long>(sms) * 8, (total + 255) / 256));
+  sell_combine<<<combine_blocks, 256, 0, stream>>>(
+      static_cast<const float*>(P), static_cast<const int32_t*>(combine),
       static_cast<float*>(Y), g);
   return cudaGetLastError();
 }
@@ -458,26 +534,31 @@ __host__ __forceinline__ bool unit_ok(int unit) {
 }
 
 // Launch the instance for the value dtype, metadata encoding and X copy
-// unit on `stream`; returns the launch's CUDA error code.
+// unit on `stream`, then the combine where slices are cut; returns the
+// launches' CUDA error code.
 template <int NC>
 int launch(const void* values, const void* X, const void* tags,
-           const void* meta, void* Y, int values_bf16, int packed,
-           int x_unit, const Geometry& g, int smem_bytes, void* stream) {
+           const void* meta, const void* items, const void* combine, void* Y,
+           void* P, int values_bf16, int packed, int x_unit,
+           const Geometry& g, int smem_bytes, void* stream) {
   const long long threads =
       static_cast<long long>(g.slices_per_block) * g.H * g.quads;
-  if (g.n_slices < 1 || g.k < 1 || g.H < 1 || g.quads < 1 ||
+  if (g.n_slices < 1 || g.n_items < 1 || g.n_windows < 1 || g.n_split < 0 ||
+      g.n_partials < 0 || (g.n_split > 0 && (P == nullptr || g.n_partials < 1)) ||
+      g.k < 1 || g.H < 1 || g.quads < 1 ||
       g.col_tile != NC * g.quads || g.slices_per_block < 1 || g.group < 1 ||
       g.max_warps < 1 || g.depth < 1 || g.depth > kMaxDepth ||
       threads > 1024 || (x_unit != 4 && x_unit != 16) ||
       (x_unit == 16 && (NC == 1 ? g.block_rows : g.k) % 4 != 0) ||
       !unit_ok(g.val_unit) || !unit_ok(g.meta_unit) || g.meta_unit < 4 ||
-      (!values_bf16 && g.val_unit < 4)) {
+      (!values_bf16 && g.val_unit < 4) ||
+      reinterpret_cast<uintptr_t>(items) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   using Fn = cudaError_t (*)(const void*, const void*, const void*,
-                             const void*, void*, const Geometry&, int,
-                             cudaStream_t);
+                             const void*, const void*, const void*, void*,
+                             void*, const Geometry&, int, cudaStream_t);
   Fn run;
   if (x_unit == 16) {
     run = values_bf16 ? (packed ? launch_as<__nv_bfloat16, true, NC, 16>
@@ -490,8 +571,8 @@ int launch(const void* values, const void* X, const void* tags,
                       : (packed ? launch_as<float, true, NC, 4>
                                 : launch_as<float, false, NC, 4>);
   }
-  return static_cast<int>(
-      run(values, X, tags, meta, Y, g, smem_bytes, st));
+  return static_cast<int>(run(values, X, tags, meta, items, combine, Y, P, g,
+                              smem_bytes, st));
 }
 
 }  // namespace

@@ -65,8 +65,9 @@ def test_gather_plan_arrays_equal_repro(packed, block_rows):
             pb.slice_height) == (pa.n_slices, pa.n_chunks, pa.window,
                                  pa.cols_per_chunk, pa.slice_height)
     np.testing.assert_array_equal(np.asarray(pa.tags), pb.tags.numpy())
-    np.testing.assert_array_equal(np.asarray(pa.elem_meta),
-                                  pb.elem_meta.numpy())
+    np.testing.assert_array_equal(   # repro's one chunk a window
+        np.asarray(pa.elem_meta).reshape(pb.elem_meta.shape),
+        pb.elem_meta.numpy())
 
 
 @pytest.mark.parametrize("block_rows,n_rows", [(1, 40), (8, 45)])
@@ -287,8 +288,8 @@ def _fanout(plan, n_out, n_rows, cfg):
     the table, and it belongs to the group of G in which its share of the
     chunk's bytes starts."""
     tags = plan.tags.numpy().astype(np.int64)
-    warps = plan.elem_warp.numpy()[:, 0].astype(np.int64)
-    offsets = plan.elem_offset.numpy()[:, 0].astype(np.int64)
+    warps = plan.elem_warp.numpy().astype(np.int64)
+    offsets = plan.elem_offset.numpy().astype(np.int64)
     br, win = plan.block_rows, plan.window
     groups = {}
     for w in range(cfg.windows):

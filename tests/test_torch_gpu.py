@@ -7,8 +7,10 @@ the JAX package, so it also runs where JAX is absent:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Tolerance: ``|kernel - plain| <= 1e-5 + 1e-5 * |plain|`` elementwise for the
-SELL kernels — both sum the same float32 products in different orders (and
-the kernel may fuse multiply-adds). The gather copies bytes: it must equal
+SELL kernels — the plain versions sum the same products in float64 and
+round once, the kernels accumulate float32 multiply-adds in the work list's
+order (each cut slice's partial rows added up after). The gather copies
+bytes: it must equal
 its plain version and ``table[idx]`` bitwise.
 """
 import numpy as np
@@ -19,7 +21,8 @@ from repro_torch.core import matrices
 from repro_torch.core.engine import SpMVEngine, cached_block_schedule, \
     clear_engine_cache, clear_schedule_cache
 from repro_torch.core.gather_engine import clear_gather_engine_cache
-from repro_torch.core.runtime import normalize_to_sell, pad_width
+from repro_torch.core.runtime import normalize_to_sell, pad_slices, \
+    pad_width
 from repro_torch.core.spmv import _sell_padded
 from repro_torch.kernels import _build, ops
 from repro_torch.core.coalescer import BlockSchedule
@@ -45,18 +48,25 @@ def cuda():
     yield torch.device("cuda", torch.cuda.current_device())
 
 
-def _plan_case(csr, *, cpc, block_rows, packed, device):
-    """(values f64 numpy (n_slices, W, H), DevicePlan on `device`)."""
+def _plan_case(csr, *, cpc, block_rows, packed, device, ragged=False):
+    """(values f64 numpy, DevicePlan on `device`): every slice padded to the
+    widest, values (n_slices, W, H); or, `ragged`, each slice at its own
+    width with the work list the engine plans (slices cut into items where
+    they hold more than a share), values (n_windows, cpc, H)."""
     sell = normalize_to_sell(csr)
-    ci, va, _ = _sell_padded(sell)
-    ci, va, W = pad_width(ci, va, multiple=cpc)
+    H = sell.slice_height
+    if ragged:
+        ci, va, widths = pad_slices(sell, multiple=cpc)
+        va = va.reshape(-1, cpc, H)
+    else:
+        ci, va, _ = _sell_padded(sell)
+        ci, va, _ = pad_width(ci, va, multiple=cpc)
     sched, _ = cached_block_schedule(
-        ci.reshape(-1), window=cpc * sell.slice_height,
-        block_rows=block_rows, device=device,
+        ci.reshape(-1), window=cpc * H, block_rows=block_rows, device=device,
     )
     plan = build_device_plan(
-        sched, n_slices=sell.n_slices, cols_per_chunk=cpc,
-        slice_height=sell.slice_height, packed=packed,
+        sched, n_slices=sell.n_slices, cols_per_chunk=cpc, slice_height=H,
+        packed=packed, slice_windows=widths // cpc if ragged else None,
     )
     return va, plan
 
@@ -69,7 +79,11 @@ def _close(got, want):
 CASES = {
     "banded": lambda: matrices.banded(3000, 24, 0.8)(seed=1),
     "random": lambda: matrices.random_uniform(16384, 16)(seed=2),
+    # ragged: 2,048 slices of 1-26 windows, the heavier cut into items of
+    # at most 4 (partial rows and their combine), the lighter whole
+    "powerlaw": lambda: matrices.powerlaw(65536, 8)(seed=3),
 }
+RAGGED = ("powerlaw",)
 
 
 @pytest.mark.parametrize("family", sorted(CASES))
@@ -79,7 +93,8 @@ CASES = {
 def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype, depth):
     csr = CASES[family]()
     va, plan = _plan_case(csr, cpc=8, block_rows=8, packed=packed,
-                          device=cuda)
+                          device=cuda, ragged=family in RAGGED)
+    assert (plan.split_slices > 0) == (family in RAGGED)
     rng = np.random.default_rng(3)
     values = torch.as_tensor(va).to(dtype).to(cuda)
     x = torch.as_tensor(rng.standard_normal(csr.n_cols).astype(np.float32),
@@ -92,21 +107,27 @@ def test_sell_spmv_kernel_matches_plain(cuda, family, packed, dtype, depth):
     _close(y, sell_spmv_plain(None, values, x, plan=plan, cols_per_chunk=8))
 
 
+@pytest.mark.parametrize("family", ["banded", "powerlaw"])
 @pytest.mark.parametrize("k", [1, 7, 8, 32, 33, 64, 65, 128, 200])
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("depth", [1, 2, 4])
-def test_sell_spmm_kernel_matches_plain(cuda, k, packed, dtype, depth):
+def test_sell_spmm_kernel_matches_plain(cuda, family, k, packed, dtype,
+                                        depth):
     """Every k the column tile meets: one column (k = 1), k not a multiple
     of 4 or 8 (7, 33, 65: 4-byte copies, masked columns), k = 8, the
     streamed micro-batch's 32 and the sync path's 64 (whole rows in 16-byte
-    pieces), one full 128-column tile, and k = 200 (two tiles)."""
-    va, plan = _plan_case(CASES["banded"](), cpc=4, block_rows=8,
-                          packed=packed, device=cuda)
+    pieces), one full 128-column tile, and k = 200 (two tiles); on a plan
+    padded to the widest slice and on a ragged plan with cut slices, whose
+    partial rows span every column tile."""
+    csr = CASES[family]()
+    va, plan = _plan_case(csr, cpc=4, block_rows=8, packed=packed,
+                          device=cuda, ragged=family in RAGGED)
+    assert (plan.split_slices > 0) == (family in RAGGED)
     rng = np.random.default_rng(4)
     values = torch.as_tensor(va).to(dtype).to(cuda)
-    X = torch.as_tensor(rng.standard_normal((3000, k)).astype(np.float32),
-                        device=cuda)
+    X = torch.as_tensor(rng.standard_normal((csr.n_cols, k)).astype(
+        np.float32), device=cuda)
     before = sell_spmm_cuda.launches
     Y = ops.sell_spmm(None, values, X, plan=plan, cols_per_chunk=4, k_tile=8,
                       buffer_depth=depth)
@@ -614,6 +635,8 @@ def test_graph_captured_solve_equals_python_loop_bitwise(cuda, name):
     op = transition_matrix(matrices.powerlaw(4000, 8)(seed=41)) \
         if name == "pagerank" else csr
     eng = get_engine(op, device=cuda)
+    if name == "pagerank":  # the power law's slices are cut: a combine a step
+        assert eng.device_plan.split_slices > 0
     b = np.random.default_rng(42).standard_normal(4000).astype(np.float32)
     results = {}
     for loop in ("python", "while", "while"):  # capture, then replay
@@ -693,9 +716,14 @@ def test_float64_host_input_runs_through_the_kernel_as_float32(cuda):
 @pytest.mark.parametrize("partition", ["even", "nnz", "cost"])
 def test_sharded_engine_on_one_card_matches_single_device(cuda, partition):
     """Four shards round-robined onto one card: every block launches the
-    kernels, and matmat / matvec agree with the single-device engine within
-    1e-5 + 1e-5·|y| (each shard pads to its own width, so the kernels sum
-    in another order)."""
+    kernels, and matmat / matvec agree with the single-device engine. Each
+    shard plans its own rows as that engine does (each slice at its own
+    width, heavy slices cut into items by the shard's own share), so the
+    two add a row up in different orders: both are held to the float64
+    product of the float32 matrix, within 1e-5 + 1e-5·(|A|·|X|) a row, the
+    gate taken of the row's absolute terms, which float32 rounding scales
+    with in any order (rows here reach 2,109 terms: either order leaves
+    some past 1e-5·|y| of the exact sum)."""
     from repro_torch.core.dist import ShardedSpMVEngine
     from repro_torch.launch.mesh import parse_mesh_spec
 
@@ -710,8 +738,19 @@ def test_sharded_engine_on_one_card_matches_single_device(cuda, partition):
     Y, y = sharded.matmat(X), sharded.matvec(X[:, 0])
     torch.cuda.synchronize()
     assert ops.sell_spmm_cuda.launches == ops.sell_spmv_cuda.launches == 4
-    _close(Y, single.matmat(X))
-    _close(y, single.matvec(X[:, 0]))
+    rows = torch.as_tensor(np.repeat(np.arange(csr.n_rows),
+                                     np.diff(csr.indptr)), device=cuda)
+    cols = torch.as_tensor(csr.indices, device=cuda).long()
+    vals = torch.as_tensor(csr.data.astype(np.float32), device=cuda).double()
+    terms = vals[:, None] * torch.as_tensor(X, device=cuda).double()[cols]
+    zero = torch.zeros((csr.n_rows, X.shape[1]), dtype=torch.float64,
+                       device=cuda)
+    want = zero.index_add(0, rows, terms)
+    limit = ATOL + RTOL * zero.index_add(0, rows, terms.abs())
+    for got in (Y, single.matmat(X)):
+        assert torch.all((got.double() - want).abs() <= limit)
+    for got in (y, single.matvec(X[:, 0])):
+        assert torch.all((got.double() - want[:, 0]).abs() <= limit[:, 0])
     parts = sharded.matvec_parts(X[:, 0])
     assert all(p.device == cuda and xd.device == cuda for p, xd, _ in parts)
     widths = [s["width"] for s in sharded.plan_report()["shards"]]

@@ -16,7 +16,7 @@ from repro.kernels.sell_spmm import sell_spmm_pallas
 from repro_torch.core import coalescer as tc
 from repro_torch.core.engine import clear_engine_cache, clear_schedule_cache
 from repro_torch.core.interop import schedule_from_arrays
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import sell_spmv as tsv
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 
@@ -72,12 +72,17 @@ def test_device_plan_arrays_equal_repro(packed, cpc, H):
     pb = tsv.build_device_plan(tb, **geo)
     assert pb.packed == pa.packed == packed
     np.testing.assert_array_equal(np.asarray(pa.tags), pb.tags.numpy())
-    np.testing.assert_array_equal(np.asarray(pa.elem_meta),
-                                  pb.elem_meta.numpy())
-    np.testing.assert_array_equal(np.asarray(pa.elem_warp),
-                                  pb.elem_warp.numpy())
-    np.testing.assert_array_equal(np.asarray(pa.elem_offset),
-                                  pb.elem_offset.numpy())
+    # repro's (n_slices, n_chunks, ...) grid is the port's windows end to
+    # end: the same words in the same order
+    np.testing.assert_array_equal(
+        np.asarray(pa.elem_meta).reshape(pb.elem_meta.shape),
+        pb.elem_meta.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(pa.elem_warp).reshape(pb.elem_warp.shape),
+        pb.elem_warp.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(pa.elem_offset).reshape(pb.elem_offset.shape),
+        pb.elem_offset.numpy())
     assert pb.meta_bytes_per_element == pa.meta_bytes_per_element
 
 
@@ -97,8 +102,9 @@ def test_packed_plan_round_trips_warp_two_to_the_fifteen():
     geo = dict(n_slices=1, cols_per_chunk=1, slice_height=4, packed=True)
     pa = jsv.build_device_plan(ja, **geo)
     pb = tsv.build_device_plan(tb, **geo)
-    np.testing.assert_array_equal(np.asarray(pa.elem_meta),
-                                  pb.elem_meta.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(pa.elem_meta).reshape(pb.elem_meta.shape),
+        pb.elem_meta.numpy())
     assert int(pb.elem_meta.min()) < 0  # the sign bit is set
     np.testing.assert_array_equal(pb.elem_warp.numpy().ravel(), ew.ravel())
     np.testing.assert_array_equal(pb.elem_offset.numpy().ravel(), eo.ravel())
@@ -329,6 +335,38 @@ def test_launch_config_fits_shared_memory_and_threads(case):
     (1024, 4098, 2)])
 def test_copy_unit_is_the_widest_dividing_piece(nbytes, ptr, unit):
     assert tsv.copy_unit(nbytes, ptr) == unit
+
+
+def test_a_plan_of_no_window_sums_every_row_to_zero(monkeypatch):
+    """SELL of width 0 (a schedule of no window): the plain versions and
+    the CUDA wrappers give zero rows, the wrappers without building or
+    launching a kernel."""
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype)
+
+    sched = tc.BlockSchedule(
+        tags=z(0, 1), n_warps=z(0), elem_warp=z(0, 32),
+        elem_offset=z(0, 32), elem_valid=z(0, 32, dtype=torch.bool),
+        window=32, block_rows=4)
+    plan = tsv.build_device_plan(sched, n_slices=2, cols_per_chunk=8,
+                                 slice_height=4)
+    assert (plan.n_windows, plan.n_chunks, plan.split_slices) == (0, 0, 0)
+    values, X = torch.zeros((2, 0, 4)), torch.ones((64, 3))
+    kw = dict(plan=plan, block_rows=4)
+    assert torch.equal(tsv.sell_spmv_plain(None, values, X[:, 0], **kw),
+                       torch.zeros(8))
+    assert torch.equal(sell_spmm_plain(None, values, X, **kw),
+                       torch.zeros((8, 3)))
+
+    def no_build():
+        raise AssertionError("a plan of no window built the kernels")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    y = tsv.sell_spmv_cuda(None, values, X[:, 0].contiguous(), **kw)
+    Y = sell_spmm_cuda(None, values, X, **kw)
+    assert torch.equal(y, torch.zeros(8))
+    assert torch.equal(Y, torch.zeros((8, 3)))
 
 
 def test_cuda_wrappers_check_the_plan_before_launching(monkeypatch):

@@ -264,7 +264,12 @@ def test_planning_stages_of_a_cuda_engine_on_the_cpu():
     stages = {(r.name, tuple(sorted((r.attrs or {}).items())))
               for r in recs}
     assert ("repro.plan.layout", (("stage", "transition"),)) in stages
-    assert ("repro.plan.schedule", (("stage", "device_plan"),)) in stages
+    # the device plan's span carries how far the walk was cut
+    plan = eng.device_plan
+    (lowered,) = _names(recs, "repro.plan.schedule", stage="device_plan")
+    assert lowered.attrs == {
+        "stage": "device_plan", "n_windows": plan.n_windows,
+        "split_slices": plan.split_slices, "item_share": plan.item_share}
     assert ("repro.plan.schedule", (("stage", "values"),)) in stages
     assert all(r.name.startswith("repro.plan.") for r in recs)
     planning = spans.last_planning(spans.records())
